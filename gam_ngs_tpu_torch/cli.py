@@ -97,7 +97,7 @@ def main(argv=None) -> int:
             "--coordinator: multi-process runs are not ported to "
             "gam_ngs_tpu_torch yet")
 
-    from gam_ngs_tpu.utils.misc import max_rss_line
+    from .utils.misc import max_rss_line
 
     if args.cmd == "create":
         from .models.create import CreateOptions, run_create
@@ -147,14 +147,14 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "n50":
-        from gam_ngs_tpu.models.n50 import run_n50
+        from .models.n50 import run_n50
 
         run_n50(args.fasta)
         return 0
 
     if args.cmd == "index":
-        from gam_ngs_tpu.io import bamlist
-        from gam_ngs_tpu.native.bamdecode import available, build_index
+        from .io import bamlist
+        from .native.bamdecode import available, build_index
 
         if not available():
             print("[error] native gamio library unavailable; "

@@ -12,18 +12,29 @@ one call; with device=None they are counted on the host
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
-from gam_ngs_tpu.graphs.assembly import AssemblyGraph, NotADag
-from gam_ngs_tpu.graphs.compact import CompactAssemblyGraph
-from gam_ngs_tpu.graphs.paired import (
-    PairedContigGraph,
-    partition_blocks_by_paired_contigs,
-)
-from gam_ngs_tpu.graphs.partition import GraphStats, _write_dot
-
 from ..ops import region_score
+from ..utils.cppfmt import cpp_double
+from .assembly import AssemblyGraph, NotADag
+from .compact import CompactAssemblyGraph
+from .paired import PairedContigGraph, partition_blocks_by_paired_contigs
+
+
+@dataclass
+class GraphStats:
+    linears: int = 0
+    forks: int = 0
+    bubbles: int = 0
+    cyclics: int = 0
+
+    def stats_text(self) -> str:
+        """The `.stats` block ([graphs stats], PartitionFunctions.cc:162)."""
+        return (f"[graphs stats]\nLinears = {self.linears}\n"
+                f"Forks = {self.forks}\nBubbles = {self.bubbles}\n"
+                f"Cyclics = {self.cyclics}\n\n")
 
 
 def partition_blocks(blocks, master_pe, master_mp, slave_pe, slave_mp,
@@ -101,3 +112,30 @@ def partition_blocks(blocks, master_pe, master_mp, slave_pe, slave_mp,
         return out, stats, finish_weights
     finish_weights()
     return out, stats
+
+
+def _write_dot(ag: AssemblyGraph, cg: CompactAssemblyGraph, graphs_dir: str,
+               ag_id: int, suffix: str) -> None:
+    kinds = {0: "black", 1: "red", 2: "green"}
+    p1 = os.path.join(graphs_dir, f"AssemblyGraph_{ag_id}_{suffix}.dot")
+    if not os.path.exists(p1):
+        with open(p1, "w") as fh:
+            fh.write("digraph AssemblyGraph {\n   rankdir=LR;\n")
+            for v in range(ag.n):
+                fh.write(f"   {v};\n")
+            for (u, v) in ag.edges():
+                prop = ag.prop[(u, v)]
+                fh.write(f"   {u}->{v}[color={kinds[prop['kind']]}, "
+                         f"label=\"{cpp_double(prop['weight'])}\"];\n")
+            fh.write("}\n")
+    p2 = os.path.join(graphs_dir, f"CompactGraph_{ag_id}_{suffix}.dot")
+    if not os.path.exists(p2):
+        with open(p2, "w") as fh:
+            fh.write("digraph CompactAssemblyGraph {\n   rankdir=LR;\n")
+            for v in range(cg.n):
+                fh.write(f"   {v};\n")
+            for (u, v) in cg.edges():
+                prop = cg.prop[(u, v)]
+                fh.write(f"   {u}->{v}[color={kinds[prop['kind']]}, "
+                         f"label=\"{cpp_double(prop['weight'])}/{prop['rnum']}\"];\n")
+            fh.write("}\n")

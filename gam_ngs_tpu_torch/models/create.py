@@ -14,12 +14,12 @@ import os
 import time
 from dataclasses import dataclass
 
-from gam_ngs_tpu.core import blocks as blocks_mod
-from gam_ngs_tpu.core.multibam import MultiBam
-from gam_ngs_tpu.io import blocks_io
-from gam_ngs_tpu.native import native_available
-from gam_ngs_tpu.utils.metrics import Metrics
-from gam_ngs_tpu.utils.misc import format_time, path_basename
+from ..core import blocks as blocks_mod
+from ..core.multibam import MultiBam
+from ..io import blocks_io
+from ..native import native_available
+from ..utils.metrics import Metrics
+from ..utils.misc import format_time, path_basename
 
 
 @dataclass

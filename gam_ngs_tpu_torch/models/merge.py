@@ -21,24 +21,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gam_ngs_tpu.core import blocks as blocks_mod
-from gam_ngs_tpu.core.multibam import MultiBam
-from gam_ngs_tpu.core.refseq import RefSequence
-from gam_ngs_tpu.graphs import paired
-from gam_ngs_tpu.io import blocks_io
-from gam_ngs_tpu.io.fasta import format_record
-from gam_ngs_tpu.merge.builder import (
+from ..core import blocks as blocks_mod
+from ..core.multibam import MultiBam
+from ..core.refseq import RefSequence
+from ..graphs import paired
+from ..graphs.partition import partition_blocks
+from ..io import blocks_io
+from ..io.fasta import format_record
+from ..merge.builder import (
     build_pctg,
     build_pctgs_batched,
     generate_single_ctg_pctgs,
 )
-from gam_ngs_tpu.merge.pctg import write_pctg_descriptors
-from gam_ngs_tpu.ops.bsw_ref import bsw_align
-from gam_ngs_tpu.utils.metrics import Metrics
-from gam_ngs_tpu.utils.misc import format_time, path_basename
-
-from ..graphs.partition import partition_blocks
+from ..merge.pctg import write_pctg_descriptors
 from ..ops import region_score
+from ..ops.bsw_ref import bsw_align
+from ..utils.metrics import Metrics
+from ..utils.misc import format_time, path_basename
 
 
 @dataclass

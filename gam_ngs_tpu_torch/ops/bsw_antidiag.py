@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from gam_ngs_tpu.ops.bsw_ref import FORCE_MAXGAP_LEN, GAP, SCORING_MATRIX
+from .bsw_ref import FORCE_MAXGAP_LEN, GAP, SCORING_MATRIX
 
 NEG = -(1 << 29)  # below every reachable cell score
 DIR_DIAG, DIR_UP, DIR_LEFT = 0, 1, 2

@@ -19,19 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gam_ngs_tpu.ops.bsw_batch import BswEngine as _JaxEngine
-from gam_ngs_tpu.ops.bsw_batch import _prepare
-from gam_ngs_tpu.ops.bsw_ref import DEFAULT_BAND_SIZE, bsw_align
-from gam_ngs_tpu.ops.editops import MATCH, Alignment
-
 from . import bsw_antidiag, bsw_walk
 from .bsw_antidiag import antidiag_dims, forward_antidiag
+from .bsw_host import _pack4, _pad_dim, _prepare
+from .bsw_ref import DEFAULT_BAND_SIZE, bsw_align
 from .bsw_walk import walk
-
-# numpy-only helpers shared with the JAX engine (no JAX import): the
-# window buckets {128, 256, 384, 512, 768, ...} and the 4-bit packing
-_pad_dim = _JaxEngine._pad_dim
-_pack4 = _JaxEngine._pack4
+from .editops import MATCH, Alignment
 
 
 def align_oracle(problems, band: int = DEFAULT_BAND_SIZE) -> list[Alignment]:

@@ -16,10 +16,9 @@ import ctypes
 
 import torch
 
-from gam_ngs_tpu.ops.bsw_ref import FORCE_MAXGAP_LEN
-from gam_ngs_tpu.ops.editops import GAP_A, GAP_B, MATCH, MISMATCH
-
 from .bsw_antidiag import DIR_DIAG, DIR_LEFT, DIR_UP, _check, unpack4
+from .bsw_ref import FORCE_MAXGAP_LEN
+from .editops import GAP_A, GAP_B, MATCH, MISMATCH
 
 launches = 0  # kernel launches by walk (CPU runs not counted)
 

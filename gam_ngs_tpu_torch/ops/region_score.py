@@ -22,17 +22,14 @@ ported yet and raise NotImplementedError.
 from __future__ import annotations
 
 import bisect
+import os
 
 import numpy as np
 import torch
 
-from gam_ngs_tpu.ops.region_score import (
-    OV_CAP,
-    ROW_CAP,
-    _count_job_host,
-    _host_cols,
-    _materialize_resident,
-)
+from ..io.bam import FMREVERSE, FMUNMAP, FPAIRED, FREVERSE
+
+XT_U = ord("U")
 
 # Per-process wire counters (run_merge records deltas): job-range payload
 # bytes, dispatches and the once-per-call column uploads.  The JAX
@@ -42,10 +39,130 @@ WIRE = {"bytes_up": 0, "dispatches": 0, "arena_bytes_up": 0}
 
 _SCA_FIELDS = ("s1", "s2", "t", "max_insert", "seq_len", "no_mult")
 
-# the bit plane of region_score._host_cols: paired, reverse, mate
+# Row cap per dispatch: bounds the int32 cumsum (cap * max-overlap
+# 2^21 * ~2^9 < 2^31) and keeps every compiled shape small.
+ROW_CAP = 1 << 21
+
+# Hard bound on the int32 overlap cumsum within one dispatch: the
+# summed overlap `ov` equals the FULL read length when a read ends
+# inside the region, so long-read BAMs (10kb+ records) could overflow
+# the row cap's short-read assumption.  Chunks are split when the
+# host-side worst-case sum of read lengths exceeds this; a single job
+# beyond it is counted exactly on the host instead.
+OV_CAP = 1 << 30
+
+
+def use_resident() -> bool:
+    """Device-resident region tables (SURVEY.md §2.7 "HBM region
+    tables"): the coord-sorted alignment columns upload ONCE per table
+    (cached on the table object), and every edge-weighting dispatch
+    ships only per-job row RANGES + scalars (~32 B/job) instead of a
+    row-copy payload (~26 B/row, tens of MB per run).  GAM_RESIDENT=0
+    restores the payload path."""
+    v = os.environ.get("GAM_RESIDENT")
+    if v is not None:
+        return v != "0"
+    return True
+
+
+# the bit plane of _host_cols: paired, reverse, mate
 # unmapped, mate reverse, NH==1 & XT:U, good quality, ref != mate ref
 _B_PAIRED, _B_REV, _B_MUNMAP, _B_MREV, _B_UNIQ, _B_GOODQ, _B_DIFFREF = (
     1, 2, 4, 8, 16, 32, 64)
+
+
+def _host_cols(mb, lib: int):
+    """Library `lib`'s coord-sorted columns on the HOST, cached on the
+    table object (tables are replaced wholesale on ranged re-ingest, so
+    object identity is the correct cache key).
+
+    Narrow layout: pos/end_pos/mate_pos int32 + ONE uint8 bit-plane
+    (paired, reverse, mate-unmapped, mate-reverse, nh==1&XT:U, goodq,
+    ref!=mate_ref — everything getLibRegionScore reads from flags/tags,
+    CompactAssemblyGraph.cc:361-530) = 13 B/row.  Also holds the int64
+    prefix sum of read lengths (the OV_CAP overflow guard needs
+    per-job Σrl in O(1)).
+
+    Only the UNION of the job row ranges is ever shipped to the device
+    (_count_jobs_resident coalesces them): junction regions are sparse
+    — measured <1% of rows at 10 Mbp — so uploading full tables spent
+    ~40 MB of thin-link bandwidth for ~100 KB of useful rows."""
+    t = mb.files[lib].table
+    cols = getattr(t, "_resident_cols", None)
+    if cols is not None:
+        return cols
+    order = mb.coord_order(lib)
+    pos = np.ascontiguousarray(t.pos[order], np.int32)
+    end = np.ascontiguousarray(t.end_pos[order], np.int32)
+    mate = np.ascontiguousarray(t.mate_pos[order], np.int32)
+    flag = t.flag[order]
+    bits = (((flag & FPAIRED) != 0) * 1
+            | ((flag & FREVERSE) != 0) * 2
+            | ((flag & FMUNMAP) != 0) * 4
+            | ((flag & FMREVERSE) != 0) * 8
+            | ((t.nh[order] == 1) & (t.xt[order] == XT_U)) * 16
+            | (t.is_good_quality()[order] != 0) * 32
+            | (t.ref_id[order] != t.mate_ref_id[order]) * 64
+            ).astype(np.uint8)
+    rlp = np.zeros(len(pos) + 1, np.int64)
+    np.cumsum(np.clip(end.astype(np.int64) - pos, 0, None), out=rlp[1:])
+    cols = (pos, end, mate, bits, rlp)
+    t._resident_cols = cols
+    return cols
+
+
+def _materialize_resident(job: dict) -> dict:
+    """Row-copy view of a resident range job (host-exact fallback)."""
+    mb, lib = job["_mb"], job["lib"]
+    t = mb.files[lib].table
+    rows = mb.coord_order(lib)[job["lo"]:job["hi"]]
+    return dict(
+        pos=t.pos[rows], end_pos=t.end_pos[rows], flag=t.flag[rows],
+        nh=t.nh[rows], xt=t.xt[rows], ref_id=t.ref_id[rows],
+        mate_ref=t.mate_ref_id[rows], mate_pos=t.mate_pos[rows],
+        goodq=t.is_good_quality()[rows],
+        **{k: job[k] for k in _SCA_FIELDS})
+
+
+def _count_job_host(job: dict) -> tuple[int, int, int]:
+    """Exact int64 host replica of the device kernel for one job —
+    the overflow escape hatch for jobs whose Σ read lengths alone
+    would exceed the int32 cumsum bound."""
+    pos = np.asarray(job["pos"], np.int64)
+    end_pos = np.asarray(job["end_pos"], np.int64)
+    flag = np.asarray(job["flag"], np.int64)
+    nh = np.asarray(job["nh"], np.int64)
+    xt = np.asarray(job["xt"], np.int64)
+    ref_id = np.asarray(job["ref_id"], np.int64)
+    mate_ref = np.asarray(job["mate_ref"], np.int64)
+    mate_pos = np.asarray(job["mate_pos"], np.int64)
+    goodq = np.asarray(job["goodq"], bool)
+
+    rl = end_pos - pos
+    end_read = pos + rl - 1
+    end_mate = mate_pos + rl - 1
+    paired = (flag & FPAIRED) != 0
+    fwd = (flag & FREVERSE) == 0
+    munmap = (flag & FMUNMAP) != 0
+    mrev = (flag & FMREVERSE) != 0
+    uniq = bool(job["no_mult"]) | ((nh == 1) & (xt == XT_U))
+    in_range = (pos >= job["s1"]) & (pos <= job["s2"])
+
+    base = goodq & paired & uniq & in_range & fwd
+    ov = np.where(end_read > job["s2"], job["s2"] - pos + 1, rl)
+
+    diff_ref = ref_id != mate_ref
+    mate_crosses = end_mate >= job["t"]
+    c1 = base & munmap
+    c2 = base & ~munmap & diff_ref
+    c2_exp = c2 & (pos + job["max_insert"] < job["seq_len"])
+    c3 = base & ~munmap & ~diff_ref & ~mrev & mate_crosses
+    c4 = base & ~munmap & ~diff_ref & mrev & mate_crosses
+
+    good = int(ov[c4].sum())
+    exp = int(ov[c1 | c2_exp | c3 | c4].sum())
+    num = int((c1 | c2 | c3 | c4).sum())
+    return good, exp, num
 
 
 def count_resident(cols, jobs_t, rows: int) -> torch.Tensor:

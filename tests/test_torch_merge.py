@@ -1,8 +1,9 @@
 """The port's create + merge end to end on the CPU (the kernels' plain
 PyTorch versions) against the JAX package's merge with its BswEngine:
 the six outputs byte for byte and the same .metrics.json keys; plus the
-oracle path, --checkpoint resume, the CLI in a process where JAX cannot
-be imported, and a guard that no module of the port imports JAX."""
+oracle path, --checkpoint resume, the CLI in a process where neither JAX
+nor the JAX package can be imported, and a guard that no module of the
+port imports either."""
 
 import ast
 import json
@@ -102,12 +103,16 @@ def test_oracle_path_and_checkpoint_resume(tmp_path):
     assert m["counters"]["aligned_cells"] == 0  # every graph resumed
 
 
+# run first in a child process: neither JAX nor the JAX package loads
+BLOCK_JAX = ("import sys; sys.modules['jax'] = None; "
+             "sys.modules['gam_ngs_tpu'] = None; ")
+
+
 def test_cli_runs_without_jax(tmp_path):
     """create --device native and merge --device cpu through the port's
-    CLI in a process where `import jax` fails."""
+    CLI in a process where `import jax` and `import gam_ngs_tpu` fail."""
     genome, ml, sl, mfa, sfa = _build_inputs(tmp_path)
-    prog = ("import sys; sys.modules['jax'] = None; "
-            "from gam_ngs_tpu_torch.cli import main; "
+    prog = (BLOCK_JAX + "from gam_ngs_tpu_torch.cli import main; "
             "sys.exit(main(sys.argv[1:]))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = str(tmp_path / "out")
@@ -143,9 +148,10 @@ def test_cli_n50_matches_and_refusals(tmp_path, capsys):
 
 
 def test_port_never_imports_jax():
-    """No module of gam_ngs_tpu_torch imports jax or jax.*."""
+    """No module of gam_ngs_tpu_torch imports jax, jax.*, gam_ngs_tpu or
+    gam_ngs_tpu.*: the port keeps its own copies of the host layers."""
     files = sorted((ROOT / "gam_ngs_tpu_torch").rglob("*.py"))
-    assert len(files) >= 12
+    assert len(files) >= 50
     for f in files + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             names = []
@@ -154,7 +160,31 @@ def test_port_never_imports_jax():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             for n in names:
-                assert n != "jax" and not n.startswith("jax."), (f, n)
+                assert n.split(".")[0] not in ("jax", "gam_ngs_tpu"), (f, n)
+
+
+def test_port_imports_without_the_jax_package():
+    """Every module of the port, tests/torch_problems.py and chip_smoke.py
+    (module import, no main()) load in a process where jax and
+    gam_ngs_tpu cannot be imported, and no gam_ngs_tpu module loads."""
+    prog = BLOCK_JAX + """
+import importlib, pathlib
+mods = [".".join(f.with_suffix("").parts).removesuffix(".__init__")
+        for f in sorted(pathlib.Path("gam_ngs_tpu_torch").rglob("*.py"))]
+for name in mods:
+    importlib.import_module(name)
+sys.path.insert(0, "tests")
+import torch_problems, chip_smoke
+bad = [k for k, v in sys.modules.items() if v is not None
+       and k.split(".")[0] in ("jax", "gam_ngs_tpu")]
+assert not bad, bad
+print(len(mods))
+"""
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert int(r.stdout.split()[-1]) >= 50
 
 
 def test_smoke_never_imports_the_jax_package():

@@ -115,7 +115,8 @@ def pack_problems(problems, band: int):
     force_start, force_end.  Empty problems are dropped."""
     import torch
 
-    from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine, _pad_dim, _prepare
+    from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
+    from gam_ngs_tpu_torch.ops.bsw_host import _pad_dim, _prepare
 
     preps = [_prepare(*pr, band) for pr in problems]
     preps = [p for p in preps if not p.empty]
