@@ -4,32 +4,45 @@
 
 Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
-  build   nvcc build of gam_ngs_tpu_torch/csrc/*.cu for sm_90a
+  build   nvcc build of gam_ngs_tpu_torch/csrc/*.cu for sm_90a (one nvcc
+          per source, in parallel), with ptxas' register and spill lines
   parity  each kernel against its plain PyTorch version on the card,
           bit for bit (256-problem soak at band 150, band-30 edge cases,
-          band 300), and the CUDA engine against the exact host aligner
-          (merge --device oracle's bsw_align) on every soak problem in
-          lean and edits fetch
-  small   gam create + gam merge --device cuda through the port's CLI on
-          the small junction corpus and a fork + bubble corpus: six
-          outputs byte-identical to merge --device oracle
+          band 300): the anti-diagonal forward with the walk over its
+          words, the row forward with the walk over row-major words; and
+          the CUDA engine against the exact host aligner (merge --device
+          oracle's bsw_align) on every soak problem: anti-diagonal in
+          lean and edits fetch, kernel="row" in lean and edits fetch, and
+          the host traceback
+  small   gam create + gam merge through the port's CLI on the small
+          junction corpus and a fork + bubble corpus: the six outputs of
+          merge --device cuda, of merge --device cuda under GAM_KERNEL=row
+          and of run_merge with a traceback="host" engine, each
+          byte-identical to merge --device oracle
   full    a 5 Mbp synthetic corpus (bench/e2e_scale.py's layout): gam
-          create --device native + gam merge --device cuda, exact genome
-          reconstruction, both kernels and the edge count launched; each
-          kernel against its plain version, bit for bit, on the inputs
-          the merge gave it (the first chunk of every batch x window
-          shape); three warm merges and one under torch.profiler
-          (device time per kernel)
-  timing  each kernel against its plain version with CUDA events
-          (median of 5 after a warm-up; outputs compared bit for bit),
-          B=64, band 150, XW 1024 / 4096
+          create --device native, then three merges on the card, each
+          with exact genome reconstruction and the launch counts of its
+          path read after setting them to 0 just before it: merge
+          --device cuda (anti-diagonal forward + walk, and the edge
+          count), the same under GAM_KERNEL=row (row forward + walk),
+          and run_merge with a traceback="host" engine (row forward,
+          host walk).  Each kernel against its plain version, bit for
+          bit, on the inputs the merges gave it (the anti-diagonal
+          path's first chunk of every batch x window shape, the row
+          path's 8-problem chunk); one warm merge and one under
+          torch.profiler (device time per kernel) of the anti-diagonal
+          path, and one profiled merge of the row path
+  timing  each kernel with CUDA events (median of 5 after a warm-up)
+          beside one call of its plain version, outputs compared bit for
+          bit, and the walks over the two forwards' words compared with
+          each other: B=64, band 150, XW 1024 / 4096
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
 
-The kernels' line is printed before the last line, which is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits
-non-zero before printing any result.
+The kernels' line is printed before the card's line and the last line,
+which is {"ok": true, "device": {...}}.  Without a CUDA device the script
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -54,9 +67,14 @@ import torch  # noqa: E402
 
 import torch_problems as tp  # noqa: E402
 from gam_ngs_tpu_torch import _build, cli  # noqa: E402
+from gam_ngs_tpu_torch.models.merge import (  # noqa: E402
+    MergeOptions,
+    run_merge,
+)
 from gam_ngs_tpu_torch.ops import (  # noqa: E402
     bsw_antidiag,
     bsw_engine,
+    bsw_row,
     bsw_walk,
     region_score,
 )
@@ -65,23 +83,56 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
     forward_antidiag_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine  # noqa: E402
-from gam_ngs_tpu_torch.ops.bsw_walk import walk, walk_torch  # noqa: E402
+from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
+    forward_row,
+    forward_row_torch,
+)
+from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
+    ANTIDIAG,
+    ROW,
+    walk,
+    walk_torch,
+)
 
 PHASES = ("header", "build", "parity", "small", "full", "timing")
 OUTPUTS = (".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
            ".noblocks.AF.fasta", ".notmerged.fasta")
 DEV = torch.device("cuda")
+# forward kernel name -> (wrapper, plain version, layout of its words)
+FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
+                             ANTIDIAG),
+            "bsw_row": (forward_row, forward_row_torch, ROW)}
+KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row")
+# int32 operations per cell (forwards) or per walk step (walk), counted
+# from the sources' inner loops: the anti-diagonal lean step (two nibble
+# loads with range checks, the score, two shared-memory reads, diag/up/
+# left, the direction, two deposit tests, packing); the row lean row
+# (two nibble loads, the score, diag/up, two five-level shuffle scans
+# with their lane tests, the direction, deposits, packing); one walk step
+# (word address and fetch, two nibble loads, the match test, counters,
+# the move and the in-band test).  Find-max: 8 per candidate, 2*YS
+# candidates per problem.
+OPS_PER_CELL = {"bsw_antidiag": 55, "bsw_row": 85}
+OPS_PER_WALK_STEP, OPS_PER_CANDIDATE = 55, 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(
+    ).splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """132 SMs x 64 int32 lanes x the card's maximum SM clock."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count \
+        * 64 * mhz * 1e6
 
 
 def to_dev(*arrs):
@@ -92,33 +143,38 @@ def lmax_of(xw: int, band: int) -> int:
     return -(-(2 * xw + 2 * band + 8) // 4) * 4
 
 
-def kernel_vs_plain(fargs, fe, lmax, with_edits):
-    """Each kernel against its plain version on one chunk's inputs:
-    fargs = forward_antidiag's arguments (a, b, begin_a, end_a, a_len,
-    x_size, force_start, band).  The walk's plain version reads the
-    kernel's forward output, so the two walks see the same input.
-    Returns (forward max|kernel - plain|, walk max|kernel - plain|,
-    {name: ms of the one call})."""
+def timed_once(ms: dict, name: str, fn):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    ms[name] = e0.elapsed_time(e1)
+    return out
+
+
+def kernel_vs_plain(name, fargs, fe, lmax, with_edits):
+    """A forward kernel against its plain version on one chunk's inputs
+    (fargs = the forward's arguments: a, b, begin_a, end_a, a_len,
+    x_size, force_start, band) and, unless fe is None, the walk over its
+    words against the walk's plain version; both walks read the kernel's
+    forward output.  Returns ({kernel: max|kernel - plain|}, {name: ms
+    of the one call})."""
+    kern, plain, layout = FORWARDS[name]
     a, b, ba, ea, _al, xs, _fs, band = fargs
-    ms = {}
-
-    def timed(name, fn):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        ms[name] = e0.elapsed_time(e1)
-        return out
-
-    fk = timed("bsw_antidiag", lambda: forward_antidiag(*fargs))
-    fp = timed("bsw_antidiag_plain", lambda: forward_antidiag_torch(*fargs))
-    wargs = (fk[0], a, b, ba, ea, xs, fe, fk[1], fk[2], band, lmax,
-             with_edits)
-    wk = timed("bsw_walk", lambda: walk(*wargs))
-    wp = timed("bsw_walk_plain", lambda: walk_torch(*wargs))
-    return max_err(fk, fp), max_err(wk, wp), ms
+    ms: dict = {}
+    fk = timed_once(ms, name, lambda: kern(*fargs))
+    fp = timed_once(ms, name + "_plain", lambda: plain(*fargs))
+    errs = {name: max_err(fk, fp)}
+    if fe is not None:
+        wargs = (fk[0], a, b, ba, ea, xs, fe, fk[1], fk[2], band, lmax,
+                 with_edits)
+        wk = timed_once(ms, "bsw_walk", lambda: walk(*wargs, layout=layout))
+        wp = timed_once(ms, "bsw_walk_plain",
+                        lambda: walk_torch(*wargs, layout=layout))
+        errs["bsw_walk"] = max_err(wk, wp)
+    return errs, ms
 
 
 def packed_inputs(problems, band):
@@ -141,14 +197,35 @@ def max_err(xs, ys) -> int:
     return err
 
 
-def note_err(res, label, ef, ew):
-    log(f"{label}: forward max|kernel-plain| {ef}, walk max|kernel-plain| "
-        f"{ew}")
-    if ef or ew:
+def note_err(res, label, errs: dict) -> None:
+    log(f"{label}: " + ", ".join(f"{k} max|kernel-plain| {v}"
+                                 for k, v in errs.items()))
+    if any(errs.values()):
         raise AssertionError(f"{label}: kernel != plain version")
-    err = res.setdefault("max_abs_err", {"bsw_antidiag": 0, "bsw_walk": 0})
-    err["bsw_antidiag"] = max(err["bsw_antidiag"], ef)
-    err["bsw_walk"] = max(err["bsw_walk"], ew)
+    err = res.setdefault("max_abs_err", dict.fromkeys(KERNELS, 0))
+    for k, v in errs.items():
+        err[k] = max(err[k], v)
+
+
+def check_engine(problems, want, label, **kw) -> None:
+    eng = BswEngine(DEV, **kw)
+    n0 = BswEngine.kernel_launches()
+    got = eng.align_many(problems)
+    torch.cuda.synchronize()
+    n1 = BswEngine.kernel_launches()
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not tp.same_alignment(g, w)]
+    used = {k: n1[k] - n0[k] for k in n1}
+    log(f"[parity] engine {label}: {len(problems) - len(bad)}/"
+        f"{len(problems)} equal to the oracle (bsw_align) "
+        f"({eng.dispatches} dispatches, launches {used})")
+    if bad:
+        raise AssertionError(f"engine {label} differs on {bad[:10]}")
+    row = eng.kernel == "row" or eng.traceback == "host"
+    want_used = {"bsw_antidiag": not row, "bsw_row": row,
+                 "bsw_walk": eng.traceback == "device"}
+    if {k: v > 0 for k, v in used.items()} != want_used:
+        raise AssertionError(f"engine {label}: launches {used}")
 
 
 def phase_parity(res):
@@ -158,22 +235,20 @@ def phase_parity(res):
              300)]
     for name, problems, band in sets:
         fargs, fe, xw = packed_inputs(problems, band)
-        for with_edits in (False, True):
-            ef, ew, _ms = kernel_vs_plain(fargs, fe, lmax_of(xw, band),
-                                          with_edits)
-            note_err(res, f"[parity] {name} edits={with_edits}", ef, ew)
+        for fwd in FORWARDS:
+            for with_edits in (False, True):
+                errs, _ms = kernel_vs_plain(fwd, fargs, fe,
+                                            lmax_of(xw, band), with_edits)
+                note_err(res, f"[parity] {name} {fwd} edits={with_edits}",
+                         errs)
     problems = sets[0][1]
     want = tp.oracle(problems, 150)
     for fetch in ("lean", "edits"):
-        eng = BswEngine(DEV, fetch=fetch)
-        got = eng.align_many(problems)
-        bad = [i for i, (g, w) in enumerate(zip(got, want))
-               if not tp.same_alignment(g, w)]
-        log(f"[parity] engine fetch={fetch}: {len(problems) - len(bad)}/"
-            f"{len(problems)} equal to the oracle (bsw_align) "
-            f"({eng.dispatches} dispatches)")
-        if bad:
-            raise AssertionError(f"engine {fetch} differs on {bad[:10]}")
+        check_engine(problems, want, f"antidiag fetch={fetch}", fetch=fetch,
+                     kernel="antidiag")
+        check_engine(problems, want, f"row fetch={fetch}", fetch=fetch,
+                     kernel="row")
+    check_engine(problems, want, "row traceback=host", traceback="host")
 
 
 def run_cli(argv) -> None:
@@ -189,6 +264,28 @@ def merge_argv(ml, sl, mfa, sfa, blocks, out, device):
             "--output", out, "--device", device]
 
 
+def merge_path(path, ml, sl, mfa, sfa, blocks, out) -> None:
+    """One merge on the card down one path: "antidiag" and "row" through
+    the CLI (--device cuda, "row" under GAM_KERNEL=row), "host" through
+    run_merge with a traceback="host" engine (no CLI flag reaches it)."""
+    if path == "host":
+        run_merge(MergeOptions(
+            master_bam_file=ml, slave_bam_file=sl, blocks_file=blocks,
+            master_fasta_file=mfa, slave_fasta_file=sfa, min_block_size=10,
+            output_file_prefix=out,
+            engine=BswEngine(DEV, traceback="host")))
+        return
+    old = os.environ.pop("GAM_KERNEL", None)
+    if path == "row":
+        os.environ["GAM_KERNEL"] = "row"
+    try:
+        run_cli(merge_argv(ml, sl, mfa, sfa, blocks, out, "cuda"))
+    finally:
+        os.environ.pop("GAM_KERNEL", None)
+        if old is not None:
+            os.environ["GAM_KERNEL"] = old
+
+
 def phase_small(tmp):
     for name in ("junction", "fork_bubble"):
         d = pathlib.Path(tmp) / name
@@ -200,55 +297,72 @@ def phase_small(tmp):
             ml, sl, mfa, sfa = tp.fork_bubble_corpus(d)
         run_cli(["create", "--master-bam", ml, "--slave-bam", sl,
                  "--min-block-size", "10", "--output", str(d / "out")])
-        for dev in ("cuda", "oracle"):
-            run_cli(merge_argv(ml, sl, mfa, sfa, str(d / "out.blocks"),
-                               str(d / dev), dev))
-        for ext in OUTPUTS:
-            a = (d / f"cuda{ext}").read_bytes()
-            b = (d / f"oracle{ext}").read_bytes()
-            if a != b:
-                raise AssertionError(f"{name}: cuda{ext} != oracle{ext}")
+        blocks = str(d / "out.blocks")
+        run_cli(merge_argv(ml, sl, mfa, sfa, blocks, str(d / "oracle"),
+                           "oracle"))
+        for path in ("antidiag", "row", "host"):
+            merge_path(path, ml, sl, mfa, sfa, blocks, str(d / path))
+            for ext in OUTPUTS:
+                a = (d / f"{path}{ext}").read_bytes()
+                b = (d / f"oracle{ext}").read_bytes()
+                if a != b:
+                    raise AssertionError(f"{name}: {path}{ext} != "
+                                         f"oracle{ext}")
         if genome is None:
-            stats = (d / "cuda.stats").read_text()
+            stats = (d / "row.stats").read_text()
             if "Forks = 1\nBubbles = 1\n" not in stats:
                 raise AssertionError(f"{name}: not one fork and one bubble")
-        elif tp.read_fasta_seqs(str(d / "cuda.gam.fasta")) != [genome]:
+        elif tp.read_fasta_seqs(str(d / "row.gam.fasta")) != [genome]:
             raise AssertionError(f"{name}: genome not reconstructed")
-        log(f"[small] {name}: six outputs byte-identical (cuda vs oracle)"
-            + (", genome reconstructed" if genome else
-               ", one fork and one bubble graph"))
+        log(f"[small] {name}: six outputs byte-identical to the oracle's "
+            f"for merge --device cuda, GAM_KERNEL=row and the host "
+            f"traceback" + (", genome reconstructed" if genome else
+                            ", one fork and one bubble graph"))
 
 
 class KeepChunkInputs:
     """Wraps the engine's kernel calls during one merge and keeps the
-    inputs of the first chunk of every (batch, window) shape, so the
-    kernels can be held against their plain versions at the shapes the
-    main path gives them.  The wrapped calls run unchanged (and count
-    their launches as usual)."""
+    inputs of the first chunk of every (forward, batch, window) shape, so
+    the kernels can be held against their plain versions at the shapes
+    the main path gives them.  The wrapped calls run unchanged (and
+    count their launches as usual)."""
+
+    NAMES = {"forward_antidiag": "bsw_antidiag", "forward_row": "bsw_row"}
 
     def __init__(self):
         self.kept: dict[tuple, dict] = {}
-        self._fwd, self._walk = bsw_engine.forward_antidiag, bsw_engine.walk
+        self._orig = {n: getattr(bsw_engine, n)
+                      for n in (*self.NAMES, "walk")}
+        self._last = None
 
     def __enter__(self):
-        def fwd(*args):
-            key = (tuple(args[0].shape), tuple(args[1].shape))
-            if key not in self.kept:
-                self.kept[key] = {"fargs": tuple(
-                    v.clone() if torch.is_tensor(v) else v for v in args)}
-            return self._fwd(*args)
+        def keep(attr):
+            fn = self._orig[attr]
 
-        def wlk(dirs, a, b, ba, ea, xs, fe, lr, dg, band, lmax, with_edits):
-            k = self.kept[(tuple(a.shape), tuple(b.shape))]
-            k.setdefault("walk", (fe.clone(), lmax, with_edits))
-            return self._walk(dirs, a, b, ba, ea, xs, fe, lr, dg, band,
-                              lmax, with_edits)
+            def forward(*args):
+                key = (self.NAMES[attr], tuple(args[0].shape),
+                       tuple(args[1].shape))
+                self._last = key
+                if key not in self.kept:
+                    self.kept[key] = {"fargs": tuple(
+                        v.clone() if torch.is_tensor(v) else v
+                        for v in args)}
+                return fn(*args)
+            return forward
 
-        bsw_engine.forward_antidiag, bsw_engine.walk = fwd, wlk
+        def wlk(*args, **kw):
+            self.kept[self._last].setdefault(
+                "walk", (args[6].clone(), args[10], kw["with_edits"]))
+            return self._orig["walk"](*args, **kw)
+
+        for attr in self.NAMES:
+            setattr(bsw_engine, attr, keep(attr))
+        bsw_engine.walk = wlk
         return self
 
     def __exit__(self, *exc):
-        bsw_engine.forward_antidiag, bsw_engine.walk = self._fwd, self._walk
+        for attr, fn in self._orig.items():
+            setattr(bsw_engine, attr, fn)
 
 
 def device_ms_by_kernel(prof) -> dict[str, float]:
@@ -262,6 +376,10 @@ def device_ms_by_kernel(prof) -> dict[str, float]:
     return out
 
 
+def reset_launches() -> None:
+    bsw_antidiag.launches = bsw_row.launches = bsw_walk.launches = 0
+
+
 def phase_full(tmp, res):
     d = pathlib.Path(tmp) / "full"
     d.mkdir()
@@ -272,77 +390,104 @@ def phase_full(tmp, res):
     run_cli(["create", "--master-bam", c["ml"], "--slave-bam", c["sl"],
              "--min-block-size", "10", "--output", f"{d}/out", "--device",
              "native"])
-    t_create = time.time() - t0
+    log(f"[full] create {time.time() - t0:.2f} s")
+    blocks = f"{d}/out.blocks"
 
-    def merge(prefix):
+    def merge(path, prefix):
         t0 = time.time()
-        run_cli(merge_argv(c["ml"], c["sl"], c["mfa"], c["sfa"],
-                           f"{d}/out.blocks", f"{d}/{prefix}", "cuda"))
+        merge_path(path, c["ml"], c["sl"], c["mfa"], c["sfa"], blocks,
+                   f"{d}/{prefix}")
+        torch.cuda.synchronize()
         wall = time.time() - t0
         return wall, json.load(open(f"{d}/{prefix}.metrics.json"))
 
-    torch.cuda.reset_peak_memory_stats()
-    bsw_antidiag.launches = 0
-    bsw_walk.launches = 0
-    disp0 = region_score.WIRE["dispatches"]
-    with KeepChunkInputs() as keep:
-        t_merge, m = merge("dev")
-    launches = BswEngine.kernel_launches()
-    region_disp = region_score.WIRE["dispatches"] - disp0
-    merged = sorted(tp.read_fasta_seqs(f"{d}/dev.gam.fasta"), key=len,
-                    reverse=True)
-    if not merged or merged[0] != c["genome"]:
-        raise AssertionError("5 Mbp: the longest merged contig is not the "
-                             "genome")
-    if min(launches.values()) < 1 or region_disp < 1:
-        raise AssertionError(f"5 Mbp: kernel launches {launches}, edge "
-                             f"count dispatches {region_disp}")
-    cells = m["counters"]["aligned_cells"]
-    log(f"[full] create {t_create:.2f} s, merge {t_merge:.2f} s, "
-        f"{len(merged)} contigs, genome reconstructed exactly")
-    log(f"[full] merge phases (s): {json.dumps(m['phases'], sort_keys=True)}")
-    log(f"[full] aligned_cells {cells}, align {m['phases']['align']:.3f} s "
-        f"-> {cells / m['phases']['align']:.4g} cells/s, align_dispatches "
-        f"{m['counters']['align_dispatches']}, row_fill_pct "
-        f"{m['counters'].get('row_fill_pct')}, batch_fill_pct "
-        f"{m['counters'].get('batch_fill_pct')}")
-    log(f"[full] launches {launches}, edge-count dispatches {region_disp}, "
-        f"max RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024}"
-        f" MiB, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    res["launches"] = launches
+    # each path once, its launch counts set to 0 just before and read
+    # just after it
+    expect = {"antidiag": {"bsw_antidiag": True, "bsw_row": False,
+                           "bsw_walk": True},
+              "row": {"bsw_antidiag": False, "bsw_row": True,
+                      "bsw_walk": True},
+              "host": {"bsw_antidiag": False, "bsw_row": True,
+                       "bsw_walk": False}}
+    keep = KeepChunkInputs()
+    res["launches"] = {}
+    for path in ("antidiag", "row", "host"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        disp0 = region_score.WIRE["dispatches"]
+        with keep:
+            t_merge, m = merge(path, path)
+        launches = BswEngine.kernel_launches()
+        region_disp = region_score.WIRE["dispatches"] - disp0
+        res["launches"][path] = launches
+        merged = sorted(tp.read_fasta_seqs(f"{d}/{path}.gam.fasta"),
+                        key=len, reverse=True)
+        if not merged or merged[0] != c["genome"]:
+            raise AssertionError(f"5 Mbp {path}: the longest merged contig "
+                                 f"is not the genome")
+        if {k: v > 0 for k, v in launches.items()} != expect[path] \
+                or region_disp < 1:
+            raise AssertionError(f"5 Mbp {path}: kernel launches "
+                                 f"{launches}, edge count dispatches "
+                                 f"{region_disp}")
+        cells = m["counters"]["aligned_cells"]
+        log(f"[full] {path}: merge {t_merge:.2f} s, {len(merged)} contigs, "
+            f"genome reconstructed exactly")
+        log(f"[full] {path}: merge phases (s): "
+            f"{json.dumps(m['phases'], sort_keys=True)}")
+        log(f"[full] {path}: aligned_cells {cells}, align "
+            f"{m['phases']['align']:.4f} s -> "
+            f"{cells / m['phases']['align']:.4g} cells/s, align_dispatches "
+            f"{m['counters']['align_dispatches']}, row_fill_pct "
+            f"{m['counters'].get('row_fill_pct')}, batch_fill_pct "
+            f"{m['counters'].get('batch_fill_pct')}")
+        log(f"[full] {path}: launches {launches}, edge-count dispatches "
+            f"{region_disp}, max RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024}"
+            f" MiB, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    want = (d / "antidiag.gam.fasta").read_bytes()
+    for path in ("row", "host"):
+        if (d / f"{path}.gam.fasta").read_bytes() != want:
+            raise AssertionError(f"5 Mbp: {path} wrote another .gam.fasta")
 
-    # the kernels against their plain versions on the merge's own chunks
-    for (a_shape, b_shape), k in sorted(keep.kept.items()):
+    # the kernels against their plain versions on the merges' own chunks:
+    # every shape of the anti-diagonal path, the row path's smallest batch
+    # (its plain version costs tens of seconds at XW 32768)
+    row_keys = [key for key in keep.kept if key[0] == "bsw_row"]
+    if not row_keys:
+        raise AssertionError("5 Mbp: the row path kept no chunk")
+    row_key = min(row_keys, key=lambda key: key[1][0])
+    for (name, a_shape, b_shape), k in sorted(keep.kept.items()):
+        if name == "bsw_row" and (name, a_shape, b_shape) != row_key:
+            continue
         fargs = k["fargs"]
-        fe, lmax, edits = k["walk"]
+        fe, lmax, edits = k.get("walk", (None, 0, False))
         xw = 2 * b_shape[1]  # two 4-bit codes a byte
-        ef, ew, ms = kernel_vs_plain(fargs, fe, lmax, edits)
-        note_err(res, f"[full] merge chunk B={a_shape[0]} XW={xw} band="
-                 f"{fargs[7]} edits={edits}", ef, ew)
-        log(f"[full] merge chunk B={a_shape[0]} XW={xw}: one call each, "
-            + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
+        errs, ms = kernel_vs_plain(name, fargs, fe, lmax, edits)
+        note_err(res, f"[full] merge chunk {name} B={a_shape[0]} XW={xw} "
+                 f"band={fargs[7]} edits={edits}", errs)
+        log(f"[full] merge chunk {name} B={a_shape[0]} XW={xw}: one call "
+            "each, " + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
 
-    want = (d / "dev.gam.fasta").read_bytes()
-    for r in range(3):
-        wall, mr = merge(f"warm{r}")
-        if (d / f"warm{r}.gam.fasta").read_bytes() != want:
-            raise AssertionError("a warm merge wrote another .gam.fasta")
-        log(f"[full] warm merge {r + 1}: wall {wall:.4f} s, phases (s) "
-            f"{json.dumps(mr['phases'], sort_keys=True)}")
+    wall, mr = merge("antidiag", "warm")
+    if (d / "warm.gam.fasta").read_bytes() != want:
+        raise AssertionError("a warm merge wrote another .gam.fasta")
+    log(f"[full] warm merge (antidiag): wall {wall:.4f} s, phases (s) "
+        f"{json.dumps(mr['phases'], sort_keys=True)}")
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, mr = merge("prof")
-        torch.cuda.synchronize()
-    dev_ms = device_ms_by_kernel(prof)
-    busy = sum(dev_ms.values())
-    log(f"[full] profiled merge: wall {wall:.4f} s, align "
-        f"{mr['phases']['align']:.4f} s, device busy {busy:.3f} ms "
-        f"({100 * busy / (wall * 1e3):.2f}% of wall)")
-    for name, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[full]   {v:10.3f} ms  {name[:90]}")
+    for path in ("antidiag", "row"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, mr = merge(path, f"prof_{path}")
+        dev_ms = device_ms_by_kernel(prof)
+        busy = sum(dev_ms.values())
+        log(f"[full] profiled merge ({path}): wall {wall:.4f} s, align "
+            f"{mr['phases']['align']:.4f} s, device busy {busy:.3f} ms "
+            f"({100 * busy / (wall * 1e3):.2f}% of wall)")
+        for name, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[full]   {v:10.3f} ms  {name[:90]}")
 
 
 def timing_problems(xw, band, B=64, seed=11):
@@ -372,30 +517,102 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times), out
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(name, fargs, fe, out, ops_rate) -> tuple[float, str]:
+    """The least time the card could take for one call of `name` on these
+    inputs: the larger of bytes (each input read once, each output
+    written once) over the memory rate and int32 operations over the
+    int32 rate.  Cells are the band cells of the problems' own rows
+    (x_size x (2*band+1)); walk steps are the walks' own lengths."""
+    a, b, ba, ea, al, xs, fs, band = fargs
+    ys = 2 * band + 1
+    if name == "bsw_walk":  # out: (summary, and the words, last row and
+        summary = out[0]    # diag it read)
+        n_bytes = nbytes(a, b, ba, ea, xs, fe, *out)
+        ops = (int(summary[2].sum()) * OPS_PER_WALK_STEP
+               + a.shape[0] * 2 * ys * OPS_PER_CANDIDATE)
+    else:
+        n_bytes = nbytes(a, b, ba, ea, al, xs, fs, *out)
+        ops = int(xs.sum()) * ys * OPS_PER_CELL[name]
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_timing(res, card):
     band = 150
+    ops_rate = int32_ops_per_s()
+    log(f"[timing] int32 rate {ops_rate:.4g} op/s (SMs x 64 x max SM "
+        f"clock), memory {HBM_BYTES_PER_S:.3g} B/s")
     for xw in (1024, 4096):
         fargs, fe, xw_b = packed_inputs(timing_problems(xw, band), band)
         if xw_b != xw:
             raise AssertionError(f"timing problems fell in bucket {xw_b}")
-        cells = int(fargs[5].sum()) * (2 * band + 1)  # x_size rows
-        t, out = {}, {}
-        for name, fn in (("bsw_antidiag", forward_antidiag),
-                         ("bsw_antidiag_plain", forward_antidiag_torch)):
-            t[name], out[name] = cuda_ms(lambda: fn(*fargs))
         a, b, ba, ea, _al, xs, _fs, _band = fargs
-        dirs, lr, dg = out["bsw_antidiag"]
-        wargs = (dirs, a, b, ba, ea, xs, fe, lr, dg, band, lmax_of(xw, band),
-                 False)
-        for name, fn in (("bsw_walk", walk), ("bsw_walk_plain", walk_torch)):
-            t[name], out[name] = cuda_ms(lambda: fn(*wargs))
-        note_err(res, f"[timing] B=64 band={band} XW={xw}",
-                 max_err(out["bsw_antidiag"], out["bsw_antidiag_plain"]),
-                 max_err(out["bsw_walk"], out["bsw_walk_plain"]))
+        cells = int(xs.sum()) * (2 * band + 1)  # x_size rows
+        t, out, bounds = {}, {}, {}
+        errs = {}
+        for name, (kern, plain, layout) in FORWARDS.items():
+            wname = "bsw_walk" if layout == ANTIDIAG else "bsw_walk_row"
+            # the plain versions take seconds: one call each
+            t[name], out[name] = cuda_ms(lambda: kern(*fargs))
+            out[name + "_plain"] = timed_once(t, name + "_plain",
+                                              lambda: plain(*fargs))
+            dirs, lr, dg = out[name]
+            wargs = (dirs, a, b, ba, ea, xs, fe, lr, dg, band,
+                     lmax_of(xw, band), False)
+            t[wname], out[wname] = cuda_ms(lambda: walk(*wargs,
+                                                        layout=layout))
+            out[wname + "_plain"] = timed_once(
+                t, wname + "_plain", lambda: walk_torch(*wargs, layout=layout))
+            errs[name] = max_err(out[name], out[name + "_plain"])
+            errs["bsw_walk"] = max(errs.get("bsw_walk", 0), max_err(
+                out[wname], out[wname + "_plain"]))
+            bounds[name] = bound(name, fargs, fe, out[name], ops_rate)
+            bounds[wname] = bound("bsw_walk", fargs, fe,
+                                  (out[wname][0], dirs, lr, dg), ops_rate)
+        note_err(res, f"[timing] B=64 band={band} XW={xw}", errs)
+        # both forwards hold the same cells: their walks agree
+        if max_err(out["bsw_walk"], out["bsw_walk_row"]):
+            raise AssertionError(f"[timing] XW={xw}: the walks over the two "
+                                 f"forwards' words differ")
         for k, ms in t.items():
+            extra = ""
+            if k in bounds:
+                extra = (f", bound {bounds[k][0]:.4f} ms "
+                         f"({bounds[k][1]})")
             log(f"[timing] {card} | B=64 band={band} XW={xw} {k}: "
-                f"{ms:.4f} ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS")
+                f"{ms:.4f} ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS"
+                + extra)
         res[f"timing_xw{xw}"] = t
+        res[f"bound_xw{xw}"] = bounds
+
+
+def kernels_line(res) -> dict:
+    tk = res.get("timing_xw4096", {})
+    bd = res.get("bound_xw4096", {})
+    launches = res.get("launches", {})
+    kern = []
+    for name, src, rep, path in (
+            ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
+             "gam_ngs_tpu/ops/bsw_pallas.py:542", "antidiag"),
+            ("bsw_walk", "gam_ngs_tpu_torch/csrc/bsw_walk.cu",
+             "gam_ngs_tpu/ops/bsw_batch.py:383", "antidiag"),
+            ("bsw_row", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
+             "gam_ngs_tpu/ops/bsw_pallas.py:48", "row")):
+        b_ms, b_by = bd.get(name, (None, None))
+        kern.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": launches.get(path, {}).get(name),
+                     "max_abs_err": res.get("max_abs_err", {}).get(name),
+                     "ms": tk.get(name), "plain_ms": tk.get(name + "_plain"),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     # no PyTorch call computes a banded SW fill or walk
+                     "library_ms": None})
+    return {"kernels": kern}
 
 
 def main() -> int:
@@ -407,7 +624,7 @@ def main() -> int:
         return 2
     res: dict = {}
     t_all = time.time()
-    card = card_line()
+    card = smi("name,power.limit")
     if "header" in phases:
         nvcc = subprocess.run([_build._nvcc(), "--version"],
                               capture_output=True, text=True, check=True)
@@ -421,7 +638,8 @@ def main() -> int:
     log(f"[build] kernels built and loaded in {time.time() - t0:.2f} s: "
         f"{os.path.basename(_build.library_path())}")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line \
+                or "spill" in line:
             log(f"[build] {line.strip()}")
     with tempfile.TemporaryDirectory() as tmp:
         if "parity" in phases:
@@ -432,22 +650,10 @@ def main() -> int:
             phase_full(tmp, res)
         if "timing" in phases:
             phase_timing(res, card)
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or "gam_ngs_tpu" in sys.modules:
+        raise AssertionError("jax or gam_ngs_tpu was imported")
     log(f"[done] {time.time() - t_all:.1f} s")
-    tk = res.get("timing_xw4096", {})
-    kern = []
-    for name, src, rep in (
-            ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
-             "gam_ngs_tpu/ops/bsw_pallas.py:542"),
-            ("bsw_walk", "gam_ngs_tpu_torch/csrc/bsw_walk.cu",
-             "gam_ngs_tpu/ops/bsw_batch.py:383")):
-        kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep,
-                     "launches": res.get("launches", {}).get(name),
-                     "max_abs_err": res.get("max_abs_err", {}).get(name),
-                     "ms": tk.get(name), "plain_ms": tk.get(name + "_plain")})
-    print(json.dumps({"kernels": kern}))
+    print(json.dumps(kernels_line(res)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

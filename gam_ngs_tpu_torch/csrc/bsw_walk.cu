@@ -1,4 +1,4 @@
-// Find-max and traceback walk over the anti-diagonal direction words.
+// Find-max and traceback walk over the forward kernels' direction words.
 //
 // Replaces gam_ngs_tpu/ops/bsw_batch.py::_find_max_builder and
 // _device_traceback_raw (the lockstep lax.scan walk of LMAX steps; XLA in
@@ -12,6 +12,10 @@
 //   2. the walk from that cell, reading each step's 2-bit direction from
 //      the forward kernel's words and the characters from the 4-bit
 //      packed windows, until the walk leaves the band or the sequences.
+//      layout 0 reads bsw_antidiag's step-major words (B, NP, band+1):
+//      cell (x, y) at word (2x+y)/16, lane y/2, bits 2*((2x+y) & 15);
+//      layout 1 reads bsw_row's row-major words (B, NP, 2*band+1): cell
+//      (x, y) at word x/16, lane y, bits 2*(x & 15).
 // It writes the 13-int summary (xf, yf, cnt, matches, gapa, gapb, hasm,
 // fmx, fmy, lmx, lmy, score, found), (13, B), and, when `edits` is not
 // null, the edit codes in walk order, (B, lmax) bytes.
@@ -46,12 +50,12 @@ __global__ void walk_kernel(const int* __restrict__ dirs,
                             const int* __restrict__ last_row,
                             const int* __restrict__ diag, int B, int aw,
                             int xw, int band, int NP, int lmax,
-                            int force_max_gap,
+                            int force_max_gap, int layout,
                             int* __restrict__ summary,
                             uint8_t* __restrict__ edits) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const int K = band + 1, YS = 2 * band + 1;
+  const int YS = 2 * band + 1, K = layout ? YS : band + 1;
   const int ba = begin_a[b], ea = end_a[b], xs = x_size[b];
   const bool fe = force_end[b] != 0;
   const int* lr = last_row + (size_t)b * YS;
@@ -94,8 +98,10 @@ __global__ void walk_kernel(const int* __restrict__ dirs,
   int fmx = 0, fmy = 0, lmx = 0, lmy = 0;
   bool active = x >= 0 && y >= 0 && ba + x + y - band >= 0;
   for (int s = 0; s < lmax && active; ++s) {
-    const int t = 2 * x + y;
-    const int d = (dp[(size_t)(t >> 4) * K + (y >> 1)] >> ((t & 15) * 2)) & 3;
+    const int t = layout ? x : 2 * x + y;
+    const int d =
+        (dp[(size_t)(t >> 4) * K + (layout ? y : y >> 1)] >> ((t & 15) * 2)) &
+        3;
     const int ca = nibble(ap, x + y, aw, 15), cb = nibble(bp, x, xw, 0);
     const bool is_match = ca == cb || ca == 4 || cb == 4;
     if (ed)
@@ -133,13 +139,15 @@ extern "C" int bsw_walk(const void* dirs, const void* a_pk, const void* b_pk,
                         const void* x_size, const void* force_end,
                         const void* last_row, const void* diag, int B, int aw,
                         int xw, int band, int NP, int lmax, int force_max_gap,
-                        void* summary, void* edits, void* stream) {
+                        int layout, void* summary, void* edits,
+                        void* stream) {
   const int threads = 64;
   walk_kernel<<<(B + threads - 1) / threads, threads, 0,
                 (cudaStream_t)stream>>>(
       (const int*)dirs, (const uint8_t*)a_pk, (const uint8_t*)b_pk,
       (const int*)begin_a, (const int*)end_a, (const int*)x_size,
       (const int*)force_end, (const int*)last_row, (const int*)diag, B, aw,
-      xw, band, NP, lmax, force_max_gap, (int*)summary, (uint8_t*)edits);
+      xw, band, NP, lmax, force_max_gap, layout, (int*)summary,
+      (uint8_t*)edits);
   return (int)cudaGetLastError();
 }

@@ -1,3 +1,4 @@
-"""Device ops of the port: the two CUDA kernel wrappers with their plain
-PyTorch versions, the batched banded-SW engine, and the partition edge
-counter."""
+"""Device ops of the port: the CUDA kernel wrappers with their plain
+PyTorch versions (bsw_antidiag, bsw_row, bsw_walk), the batched
+banded-SW engine and its host helpers, the partition edge counter, and
+the exact host oracles (bsw_ref, editops, ablast)."""

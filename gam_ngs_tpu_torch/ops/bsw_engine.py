@@ -1,14 +1,23 @@
 """Batched banded Smith-Waterman engine on a torch device.
 
-The counterpart of gam_ngs_tpu/ops/bsw_batch.py::BswEngine on its fused
-device path: problems are clipped by the shared `_prepare`, bucketed by
-the shared window buckets (`_pad_dim`), chunked by max_batch and the
-device-memory budget, uploaded as 4-bit packed windows, and each chunk
-runs the forward kernel (ops.bsw_antidiag) then the find-max + walk
-kernel (ops.bsw_walk).  Every chunk is dispatched before any result is
+The counterpart of gam_ngs_tpu/ops/bsw_batch.py::BswEngine: problems are
+clipped by `_prepare`, bucketed by the window buckets (`_pad_dim`),
+chunked by max_batch and the device-memory budget, and uploaded as
+4-bit packed windows.  Each chunk runs a forward kernel: the
+anti-diagonal one (ops.bsw_antidiag) or, with kernel="row"
+(GAM_KERNEL=row) or the host traceback, the row-form one (ops.bsw_row).
+
+Device traceback: the find-max + walk kernel (ops.bsw_walk) follows the
+forward on the device.  Every chunk is dispatched before any result is
 fetched; each chunk's fetch is one (13, B) int32 summary (`lean`), or
 that plus the edit codes (`edits`).  The direction words stay on the
 device and are freed once the walk is queued.
+
+Host traceback (the JAX engine's _run_chunk): per chunk the row forward
+runs on the device, its direction words, last row and diagonal are
+fetched, and find-max and the walk run on the host (the C++ walk of
+native/gamio.cc, or its Python twin under GAM_NO_NATIVE), giving full
+edit strings.
 
 The engine takes its torch.device from the caller; CPU tensors run the
 kernels' plain PyTorch versions.
@@ -16,14 +25,25 @@ kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from . import bsw_antidiag, bsw_walk
+from . import bsw_antidiag, bsw_row, bsw_walk
 from .bsw_antidiag import antidiag_dims, forward_antidiag
-from .bsw_host import _pack4, _pad_dim, _prepare
+from .bsw_host import (
+    _find_max_from,
+    _pack4,
+    _PackedDirs,
+    _pad_dim,
+    _prepare,
+    _traceback_from_dirs,
+    _traceback_native,
+)
 from .bsw_ref import DEFAULT_BAND_SIZE, bsw_align
-from .bsw_walk import walk
+from .bsw_row import forward_row
+from .bsw_walk import ANTIDIAG, ROW, walk
 from .editops import MATCH, Alignment
 
 
@@ -39,19 +59,34 @@ class BswEngine:
     ops.editops.Alignment values (bsw_ref.bsw_align's results).
 
     fetch: "lean" ships the walk summary only (Alignment.lean), "edits"
-    the edit string too, "auto" = lean on CUDA, edits on the CPU.
+    the edit string too, "auto" = lean on CUDA, edits on the CPU; the
+    host traceback always gives edit strings.
+    kernel: "row" runs the row-form forward, anything else the
+    anti-diagonal one; "auto" reads GAM_KERNEL, as the JAX engine does.
+    traceback: "device", "host" or "auto".  "auto" is "device" on CUDA
+    and on the CPU alike; the JAX engine's "auto" picks the host walk on
+    the CPU, where its Pallas kernels run slowly in interpret mode, which
+    does not hold for the plain versions here.  Results are identical
+    either way.  The host walkers read row-major words, so "host" always
+    runs the row-form forward.
     """
 
     def __init__(self, device: torch.device, band: int = DEFAULT_BAND_SIZE,
                  max_batch: int = 64, hbm_budget_bytes: int = 2 << 30,
-                 fetch: str = "auto"):
+                 fetch: str = "auto", kernel: str = "auto",
+                 traceback: str = "auto"):
         if fetch not in ("lean", "edits", "auto"):
             raise ValueError(f"fetch {fetch!r}: lean, edits or auto")
+        if traceback not in ("device", "host", "auto"):
+            raise ValueError(f"traceback {traceback!r}: device, host or auto")
         self.device = torch.device(device)
         self.band = band
         self.max_batch = max_batch
         self.hbm_budget = hbm_budget_bytes
         self.fetch = fetch
+        self.kernel = (os.environ.get("GAM_KERNEL", kernel)
+                       if kernel == "auto" else kernel)
+        self.traceback = "device" if traceback == "auto" else traceback
         self.cells_aligned = 0  # logical band cells processed (metrics)
         self.bytes_up = 0       # host->device payload bytes (metrics)
         self.dispatches = 0
@@ -62,16 +97,22 @@ class BswEngine:
 
     @classmethod
     def from_reference(cls, ref, device: torch.device) -> "BswEngine":
-        """An engine with a gam_ngs_tpu BswEngine's band, batch, budget
-        and fetch settings (read as attributes; no JAX call)."""
+        """An engine with a gam_ngs_tpu BswEngine's band, batch, budget,
+        fetch, kernel and traceback settings (read as attributes; no JAX
+        call)."""
         return cls(device, band=ref.band, max_batch=ref.max_batch,
-                   hbm_budget_bytes=ref.hbm_budget, fetch=ref.fetch)
+                   hbm_budget_bytes=ref.hbm_budget, fetch=ref.fetch,
+                   kernel=ref.kernel, traceback=ref.traceback)
 
     @staticmethod
     def kernel_launches() -> dict[str, int]:
-        """Launch counts of the two CUDA kernels in this process."""
+        """Launch counts of the CUDA kernels in this process."""
         return {"bsw_antidiag": bsw_antidiag.launches,
+                "bsw_row": bsw_row.launches,
                 "bsw_walk": bsw_walk.launches}
+
+    def _use_row(self) -> bool:
+        return self.kernel == "row" or self.traceback == "host"
 
     def _lean(self) -> bool:
         if self.fetch == "auto":
@@ -109,6 +150,10 @@ class BswEngine:
             for k in range(0, len(idxs), bmax):
                 chunks.append((idxs[k:k + bmax], xw))
 
+        if self.traceback == "host":
+            for chunk, xw in chunks:
+                self._run_chunk(chunk, preps, xw, out)
+            return out  # type: ignore[return-value]
         # dispatch every chunk before fetching any result: the device
         # queue stays full while the host packs the next chunk
         pending = [self._dispatch(chunk, preps, xw) for chunk, xw in chunks]
@@ -146,25 +191,32 @@ class BswEngine:
         self.util["rows_padded"] += B * xw
         return _pack4(a_win), _pack4(b_win), scal
 
+    def _upload(self, chunk, preps, xw):
+        """Pack and upload one chunk: (a_pk, b_pk, (6,) scalar rows)."""
+        a_pk, b_pk, scal = self._pack_chunk(chunk, preps, xw)
+        self.bytes_up += a_pk.nbytes + b_pk.nbytes + scal.nbytes
+        self.dispatches += 1
+        dev = self.device
+        return (torch.from_numpy(a_pk).to(dev),
+                torch.from_numpy(b_pk).to(dev),
+                torch.from_numpy(scal).to(dev).unbind(0))
+
     def _dispatch(self, chunk, preps, xw):
         """Upload one chunk and queue its two kernels; returns what
         _collect needs without waiting for the device."""
         band = self.band
         lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
         lean = self._lean()
-        a_pk, b_pk, scal = self._pack_chunk(chunk, preps, xw)
-        self.bytes_up += a_pk.nbytes + b_pk.nbytes + scal.nbytes
-        self.dispatches += 1
-        dev = self.device
-        a_d = torch.from_numpy(a_pk).to(dev)
-        b_d = torch.from_numpy(b_pk).to(dev)
-        s_d = torch.from_numpy(scal).to(dev)
-        begin_a, end_a, a_len, x_size, fstart, fend = s_d.unbind(0)
-        dirs, last_row, diag = forward_antidiag(
+        row = self._use_row()
+        a_d, b_d, (begin_a, end_a, a_len, x_size, fstart, fend) = \
+            self._upload(chunk, preps, xw)
+        forward = forward_row if row else forward_antidiag
+        dirs, last_row, diag = forward(
             a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
         summary, edits = walk(dirs, a_d, b_d, begin_a, end_a, x_size, fend,
                               last_row, diag, band, lmax,
-                              with_edits=not lean)
+                              with_edits=not lean,
+                              layout=ROW if row else ANTIDIAG)
         return chunk, summary, edits
 
     def _collect(self, pend, preps, out):
@@ -216,3 +268,50 @@ class BswEngine:
                 a_size=len(p.a), b_size=len(p.b), score=int(score[t]),
                 homology=0.0 if n == 0 else m * 100.0 / n,
                 edits=np.ascontiguousarray(codes))
+
+    def _run_chunk(self, chunk, preps, xw, out):
+        """Host traceback of one chunk: the row forward on the device,
+        one fetch each of its directions, last row and diagonal, then
+        find-max and the walk on the host (bsw_batch.py::_run_chunk)."""
+        band = self.band
+        a_d, b_d, (begin_a, end_a, a_len, x_size, fstart, _fend) = \
+            self._upload(chunk, preps, xw)
+        dirs, last_row, diag = forward_row(
+            a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
+        dirs = dirs.cpu().numpy()
+        last_rows = last_row.cpu().numpy()
+        dvals = diag.cpu().numpy()
+        y_size = 2 * band + 1
+        for t, i in enumerate(chunk):
+            p = preps[i]
+            # the pos_a == end_a diagonal cells, rows ascending
+            if p.end_a >= p.begin_a + band:
+                i0 = p.end_a - (p.begin_a + band)
+            else:
+                i0 = 0
+            diag_is = []
+            diag_vals = []
+            ii = i0
+            jj = p.end_a - p.begin_a - ii + band
+            while ii < p.x_size and jj >= 0:
+                if 0 <= jj < y_size:
+                    diag_is.append(ii)
+                    diag_vals.append(dvals[t, jj])
+                ii += 1
+                jj -= 1
+            found, max_i, max_j, max_score = _find_max_from(
+                last_rows[t], diag_vals, diag_is, p, band)
+            if not found:
+                out[i] = Alignment()
+                continue
+            res = _traceback_native(dirs, t, p, band, max_i, max_j)
+            if res is not None:
+                edits, matches, x, pos = res
+            else:
+                edits, matches, x, pos = _traceback_from_dirs(
+                    _PackedDirs(dirs[t]), p, band, max_i, max_j)
+            homology = 0.0 if not edits else matches * 100.0 / len(edits)
+            out[i] = Alignment(
+                begin_a=pos + 1, begin_b=p.begin_b + x + 1,
+                a_size=len(p.a), b_size=len(p.b), score=max_score,
+                homology=homology, edits=np.array(edits, np.uint8))

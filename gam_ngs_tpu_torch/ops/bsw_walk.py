@@ -1,8 +1,12 @@
 """Find-max + traceback walk: CUDA kernel + plain version.
 
 `walk` launches csrc/bsw_walk.cu for CUDA tensors and runs `walk_torch`
-for CPU tensors.  Both take the forward's outputs (ops.bsw_antidiag) and
-the same 4-bit packed windows, and return the (13, B) int32 summary
+for CPU tensors.  Both take a forward's outputs and the same 4-bit
+packed windows: with layout ANTIDIAG the step-major words of
+ops.bsw_antidiag (B, NP, band+1), cell (x, y) at word (2x+y)/16, lane
+y/2, bits 2*((2x+y) & 15); with layout ROW the row-major words of
+ops.bsw_row (B, XW/16, 2*band+1), cell (x, y) at word x/16, lane y,
+bits 2*(x & 15).  They return the (13, B) int32 summary
 (rows xf, yf, cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy, score,
 found) plus, when asked, the (B, lmax) uint8 edit codes in walk order
 (zero past each walk's end; the wrapper zero-fills them).  Both stop
@@ -19,6 +23,8 @@ import torch
 from .bsw_antidiag import DIR_DIAG, DIR_LEFT, DIR_UP, _check, unpack4
 from .bsw_ref import FORCE_MAXGAP_LEN
 from .editops import GAP_A, GAP_B, MATCH, MISMATCH
+
+ANTIDIAG, ROW = 0, 1  # direction-word layouts
 
 launches = 0  # kernel launches by walk (CPU runs not counted)
 
@@ -63,7 +69,8 @@ def find_max_torch(last_row, diag, begin_a, end_a, x_size, force_end,
 
 
 def walk_torch(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end,
-               last_row, diag, band: int, lmax: int, with_edits: bool):
+               last_row, diag, band: int, lmax: int, with_edits: bool,
+               layout: int = ANTIDIAG):
     """The walk in torch ops, one step of every problem per iteration."""
     dev = dirs.device
     B, NP, K = dirs.shape
@@ -85,9 +92,14 @@ def walk_torch(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end,
     for s in range(lmax):
         if not bool(active.any()):
             break
-        t = 2 * x + y
-        word = dirs[bi, torch.clamp(t >> 4, 0, NP - 1),
-                    torch.clamp(y >> 1, 0, K - 1)]
+        if layout == ROW:
+            t = x
+            word = dirs[bi, torch.clamp(x >> 4, 0, NP - 1),
+                        torch.clamp(y, 0, K - 1)]
+        else:
+            t = 2 * x + y
+            word = dirs[bi, torch.clamp(t >> 4, 0, NP - 1),
+                        torch.clamp(y >> 1, 0, K - 1)]
         d = (word >> ((t & 15) * 2)) & 3
         ca = a[bi, torch.clamp(x + y, 0, aw - 1)]
         cb = b[bi, torch.clamp(x, 0, xw - 1)]
@@ -124,7 +136,7 @@ def _kernel():
         from .._build import library
 
         fn = library().bsw_walk
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _fn = fn
@@ -132,19 +144,24 @@ def _kernel():
 
 
 def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
-         diag, band: int, lmax: int, with_edits: bool):
+         diag, band: int, lmax: int, with_edits: bool,
+         layout: int = ANTIDIAG):
     """Find-max + walk of B problems -> (summary (13, B) int32, edits
     (B, lmax) uint8 or None).  CUDA tensors launch the kernel (or raise);
     CPU tensors run the plain version."""
+    if layout not in (ANTIDIAG, ROW):
+        raise ValueError(f"layout {layout}: ANTIDIAG (0) or ROW (1)")
     if dirs.device.type == "cpu":
         return walk_torch(dirs, a_pk, b_pk, begin_a, end_a, x_size,
-                          force_end, last_row, diag, band, lmax, with_edits)
+                          force_end, last_row, diag, band, lmax, with_edits,
+                          layout)
     if dirs.device.type != "cuda":
         raise ValueError(f"unsupported device {dirs.device}")
     dev = dirs.device
     B, NP, K = dirs.shape
     aw, xw, YS = 2 * a_pk.shape[1], 2 * b_pk.shape[1], 2 * band + 1
-    _check("dirs", dirs, torch.int32, (B, NP, band + 1), dev)
+    lanes = 2 * band + 1 if layout == ROW else band + 1
+    _check("dirs", dirs, torch.int32, (B, NP, lanes), dev)
     _check("a_pk", a_pk, torch.uint8, (B, aw // 2), dev)
     _check("b_pk", b_pk, torch.uint8, (B, xw // 2), dev)
     for name, v in (("begin_a", begin_a), ("end_a", end_a),
@@ -152,7 +169,8 @@ def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
         _check(name, v, torch.int32, (B,), dev)
     _check("last_row", last_row, torch.int32, (B, YS), dev)
     _check("diag", diag, torch.int32, (B, YS), dev)
-    if 2 * (xw - 1) + 2 * band >= 16 * NP:
+    last_word = xw - 1 if layout == ROW else 2 * (xw - 1) + 2 * band
+    if last_word >= 16 * NP:
         raise ValueError(f"dirs has {NP} words per lane, too few for "
                          f"xw={xw}, band={band}")
     summary = torch.empty((13, B), dtype=torch.int32, device=dev)
@@ -166,7 +184,8 @@ def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
                         begin_a.data_ptr(), end_a.data_ptr(),
                         x_size.data_ptr(), force_end.data_ptr(),
                         last_row.data_ptr(), diag.data_ptr(), B, aw, xw,
-                        band, NP, lmax, FORCE_MAXGAP_LEN, summary.data_ptr(),
+                        band, NP, lmax, FORCE_MAXGAP_LEN, layout,
+                        summary.data_ptr(),
                         edits.data_ptr() if with_edits else None, stream)
     if err:
         raise RuntimeError(f"bsw_walk launch failed: CUDA error {err}")

@@ -334,4 +334,36 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.library_path().startswith(
         _build.BUILD_DIR + "/libgam_kernels_")
     assert [p.rsplit("/", 1)[1] for p in _build.sources()] == [
-        "bsw_antidiag.cu", "bsw_walk.cu"]
+        "bsw_antidiag.cu", "bsw_row.cu", "bsw_walk.cu"]
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
+    """With a stand-in nvcc on PATH: one compile per source, then one
+    link, and the library appears only when every step succeeded."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    log = tmp_path / "calls"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$*\" >> {log}\n"
+        + ("case \"$*\" in *bsw_row.cu*) echo bad >&2; exit 3;; esac\n"
+           if fail else "")
+        + "while [ $# -gt 1 ]; do [ \"$1\" = -o ] && : > \"$2\"; shift; "
+          "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}:/usr/bin:/bin")
+    so = tmp_path / "lib.so"
+    if fail:
+        with pytest.raises(RuntimeError, match="exit 3"):
+            _build._compile_and_link(str(tmp_path), str(so))
+        assert not so.exists()
+    else:
+        _build._compile_and_link(str(tmp_path), str(so))
+        assert so.exists()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(_build.sources()) == 3
+    assert [c for c in calls if "-shared" in c] == ([] if fail else
+                                                    [calls[-1]])

@@ -12,13 +12,14 @@ import torch
 
 import torch_problems as tp
 from gam_ngs_tpu_torch import cli
-from gam_ngs_tpu_torch.ops import bsw_antidiag, bsw_walk
+from gam_ngs_tpu_torch.ops import bsw_antidiag, bsw_row, bsw_walk
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (
     forward_antidiag,
     forward_antidiag_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
-from gam_ngs_tpu_torch.ops.bsw_walk import walk, walk_torch
+from gam_ngs_tpu_torch.ops.bsw_row import forward_row, forward_row_torch
+from gam_ngs_tpu_torch.ops.bsw_walk import ROW, walk, walk_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +69,60 @@ def test_kernels_match_plain(dev, name):
     torch.cuda.synchronize()
     assert (bsw_antidiag.launches, bsw_walk.launches) == (n0[0] + 1,
                                                           n0[1] + 2)
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEM_SETS))
+def test_row_kernel_and_row_walk_match_plain(dev, name):
+    band, make = PROBLEM_SETS[name]
+    (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(make(), band, dev)
+    n0 = (bsw_row.launches, bsw_walk.launches)
+    fwd = forward_row(a, b, ba, ea, al, xs, fs, band)
+    plain = forward_row_torch(a, b, ba, ea, al, xs, fs, band)
+    for k, p in zip(fwd, plain):
+        assert torch.equal(k, p)
+    dirs, last_row, diag = fwd
+    lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
+    for edits in (False, True):
+        args = (dirs, a, b, ba, ea, xs, fe, last_row, diag, band, lmax,
+                edits)
+        got = walk(*args, layout=ROW)
+        want = walk_torch(*args, layout=ROW)
+        assert torch.equal(got[0], want[0])
+        if edits:
+            assert torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert (bsw_row.launches, bsw_walk.launches) == (n0[0] + 1, n0[1] + 2)
+
+
+@pytest.mark.parametrize("traceback,fetch", [
+    ("device", "lean"), ("device", "edits"), ("host", "edits")])
+def test_row_engine_matches_bsw_align(dev, traceback, fetch):
+    problems = tp.soak_problems(256)
+    eng = BswEngine(dev, fetch=fetch, kernel="row", traceback=traceback)
+    n0 = BswEngine.kernel_launches()
+    got = eng.align_many(problems)
+    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, 150))):
+        assert tp.same_alignment(g, w), k
+    n1 = BswEngine.kernel_launches()
+    assert n1["bsw_row"] > n0["bsw_row"]
+    assert n1["bsw_antidiag"] == n0["bsw_antidiag"]
+    assert (n1["bsw_walk"] > n0["bsw_walk"]) == (traceback == "device")
+
+
+def test_row_wrapper_raises_on_mixed_devices(dev):
+    (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(tp.soak_problems(4), 150,
+                                                 dev)
+    with pytest.raises(ValueError, match="begin_a"):
+        forward_row(a, b, ba.cpu(), ea, al, xs, fs, 150)
+    with pytest.raises(ValueError, match="band"):
+        forward_row(a, b, ba, ea, al, xs, fs, 600)
+    dirs, last_row, diag = forward_row(a, b, ba, ea, al, xs, fs, 150)
+    lmax = -(-(2 * xw + 300 + 8) // 4) * 4
+    with pytest.raises(ValueError, match="a_pk"):
+        walk(dirs, a.cpu(), b, ba, ea, xs, fe, last_row, diag, 150, lmax,
+             False, layout=ROW)
+    with pytest.raises(ValueError, match="dirs"):  # row words, antidiag walk
+        walk(dirs, a, b, ba, ea, xs, fe, last_row, diag, 150, lmax, False)
 
 
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
