@@ -103,17 +103,18 @@ FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
                              ANTIDIAG),
             "bsw_row": (forward_row, forward_row_torch, ROW)}
 KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row")
-# int32 operations per cell (forwards) or per walk step (walk), counted
-# from the sources' inner loops: the anti-diagonal lean step (two nibble
-# loads with range checks, the score, two shared-memory reads, diag/up/
-# left, the direction, two deposit tests, packing); the row lean row
-# (two nibble loads, the score, diag/up, two five-level shuffle scans
-# with their lane tests, the direction, deposits, packing); one walk step
-# (word address and fetch, two nibble loads, the match test, counters,
-# the move and the in-band test).  Find-max: 8 per candidate, 2*YS
-# candidates per problem.
-OPS_PER_CELL = {"bsw_antidiag": 55, "bsw_row": 85}
-OPS_PER_WALK_STEP, OPS_PER_CANDIDATE = 55, 8
+# int32 operations the function needs, counted from the recurrence and
+# not from either kernel's scheme, so both forwards share one figure.
+# One band cell of bsw_ref.fill_matrix: its position (1), range test (2),
+# a's code from its 4-bit pack (2; b's is one per row), the score (2),
+# diag/up/left (3), their max (2), the direction (3) and packing it into
+# its word (2).  One step of bsw_ref.traceback over the 2-bit words: the
+# word's address (3) and field (4), the two codes from their packs (6),
+# the match test (5), the counters (2), the move (4), the new position
+# (2) and the loop test (5).  Find-max: 8 per candidate, 2*YS candidates
+# per problem.
+OPS_PER_CELL = 17
+OPS_PER_WALK_STEP, OPS_PER_CANDIDATE = 31, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
@@ -526,17 +527,21 @@ def bound(name, fargs, fe, out, ops_rate) -> tuple[float, str]:
     inputs: the larger of bytes (each input read once, each output
     written once) over the memory rate and int32 operations over the
     int32 rate.  Cells are the band cells of the problems' own rows
-    (x_size x (2*band+1)); walk steps are the walks' own lengths."""
+    (x_size x (2*band+1)).  A walk reads one direction word and two
+    4-bit codes a step, and writes one edit code a step when it returns
+    edits; its steps are the walks' own lengths."""
     a, b, ba, ea, al, xs, fs, band = fargs
     ys = 2 * band + 1
-    if name == "bsw_walk":  # out: (summary, and the words, last row and
-        summary = out[0]    # diag it read)
-        n_bytes = nbytes(a, b, ba, ea, xs, fe, *out)
-        ops = (int(summary[2].sum()) * OPS_PER_WALK_STEP
+    if name == "bsw_walk":  # out: (summary, edits, last row, diag)
+        summary, edits, last_row, diag = out
+        steps = int(summary[2].sum())
+        n_bytes = (steps * (4 + 1 + (edits is not None))
+                   + nbytes(ba, ea, xs, fe, last_row, diag, summary))
+        ops = (steps * OPS_PER_WALK_STEP
                + a.shape[0] * 2 * ys * OPS_PER_CANDIDATE)
     else:
         n_bytes = nbytes(a, b, ba, ea, al, xs, fs, *out)
-        ops = int(xs.sum()) * ys * OPS_PER_CELL[name]
+        ops = int(xs.sum()) * ys * OPS_PER_CELL
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -573,7 +578,7 @@ def phase_timing(res, card):
                 out[wname], out[wname + "_plain"]))
             bounds[name] = bound(name, fargs, fe, out[name], ops_rate)
             bounds[wname] = bound("bsw_walk", fargs, fe,
-                                  (out[wname][0], dirs, lr, dg), ops_rate)
+                                  (*out[wname], lr, dg), ops_rate)
         note_err(res, f"[timing] B=64 band={band} XW={xw}", errs)
         # both forwards hold the same cells: their walks agree
         if max_err(out["bsw_walk"], out["bsw_walk_row"]):
@@ -582,8 +587,8 @@ def phase_timing(res, card):
         for k, ms in t.items():
             extra = ""
             if k in bounds:
-                extra = (f", bound {bounds[k][0]:.4f} ms "
-                         f"({bounds[k][1]})")
+                extra = (f", bound {bounds[k][0]:.6f} ms "
+                         f"({bounds[k][1]}), {ms / bounds[k][0]:.1f}x it")
             log(f"[timing] {card} | B=64 band={band} XW={xw} {k}: "
                 f"{ms:.4f} ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS"
                 + extra)

@@ -33,7 +33,6 @@ import torch
 from . import bsw_antidiag, bsw_row, bsw_walk
 from .bsw_antidiag import antidiag_dims, forward_antidiag
 from .bsw_host import (
-    _find_max_from,
     _pack4,
     _PackedDirs,
     _pad_dim,
@@ -43,7 +42,7 @@ from .bsw_host import (
 )
 from .bsw_ref import DEFAULT_BAND_SIZE, bsw_align
 from .bsw_row import forward_row
-from .bsw_walk import ANTIDIAG, ROW, walk
+from .bsw_walk import ANTIDIAG, ROW, find_max_torch, walk
 from .editops import MATCH, Alignment
 
 
@@ -272,35 +271,23 @@ class BswEngine:
     def _run_chunk(self, chunk, preps, xw, out):
         """Host traceback of one chunk: the row forward on the device,
         one fetch each of its directions, last row and diagonal, then
-        find-max and the walk on the host (bsw_batch.py::_run_chunk)."""
+        find-max (find_max_torch on the fetched tensors) and the walk on
+        the host (bsw_batch.py::_run_chunk)."""
         band = self.band
         a_d, b_d, (begin_a, end_a, a_len, x_size, fstart, _fend) = \
             self._upload(chunk, preps, xw)
         dirs, last_row, diag = forward_row(
             a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
         dirs = dirs.cpu().numpy()
-        last_rows = last_row.cpu().numpy()
-        dvals = diag.cpu().numpy()
-        y_size = 2 * band + 1
-        for t, i in enumerate(chunk):
+        n = len(chunk)
+        sc = [torch.tensor([getattr(preps[i], f) for i in chunk],
+                           dtype=torch.int32)
+              for f in ("begin_a", "end_a", "x_size", "force_end")]
+        found_max = find_max_torch(last_row.cpu()[:n], diag.cpu()[:n], *sc,
+                                   band)
+        for t, (i, max_i, max_j, max_score, found) in enumerate(
+                zip(chunk, *(v.tolist() for v in found_max))):
             p = preps[i]
-            # the pos_a == end_a diagonal cells, rows ascending
-            if p.end_a >= p.begin_a + band:
-                i0 = p.end_a - (p.begin_a + band)
-            else:
-                i0 = 0
-            diag_is = []
-            diag_vals = []
-            ii = i0
-            jj = p.end_a - p.begin_a - ii + band
-            while ii < p.x_size and jj >= 0:
-                if 0 <= jj < y_size:
-                    diag_is.append(ii)
-                    diag_vals.append(dvals[t, jj])
-                ii += 1
-                jj -= 1
-            found, max_i, max_j, max_score = _find_max_from(
-                last_rows[t], diag_vals, diag_is, p, band)
             if not found:
                 out[i] = Alignment()
                 continue

@@ -3,9 +3,10 @@
 The port's copies of gam_ngs_tpu/ops/bsw_batch.py's host code: problem
 clipping and windowing (_prepare), the window buckets (_pad_dim), the
 4-bit packing of the uploads (_pack4), and the host traceback path's
-find-max (_find_max_from) and walks over row-major packed directions
-(_traceback_native, the C++ walk of native/gamio.cc, and its Python
-twin _traceback_from_dirs).
+walks over row-major packed directions (_traceback_native, the C++ walk
+of native/gamio.cc, and its Python twin _traceback_from_dirs).  Its
+find-max is ops.bsw_walk.find_max_torch, the device walk's plain
+find-max, run on the fetched tensors.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .bsw_ref import BSW_MAX_ALIGNMENT, FORCE_MAXGAP_LEN
+from .bsw_ref import BSW_MAX_ALIGNMENT
 from .editops import GAP_A, GAP_B, MATCH, MISMATCH
 
 _DIR_DIAG, _DIR_UP, _DIR_LEFT = 0, 1, 2
@@ -59,35 +60,6 @@ def _prepare(a, begin_a, end_a, b, begin_b, end_b, force_start, force_end,
     b_win = np.ascontiguousarray(b[begin_b:begin_b + x_size])
     return _Prep(False, a, b, begin_a, end_a, begin_b, x_size, a_win,
                  b_win, force_start, force_end)
-
-
-def _find_max_from(last_row, diag_vals, diag_is, p: _Prep, band: int):
-    """Reference find-max over last row + pos_a==end_a diagonal."""
-    y_size = 2 * band + 1
-    found = False
-    max_i = max_j = 0
-    max_score = 0
-
-    if not p.force_end:
-        base = p.begin_a + (p.x_size - 1) - band
-        for j in range(y_size):
-            pos = base + j
-            if 0 <= pos <= p.end_a:
-                v = int(last_row[j])
-                if not found or v > max_score:
-                    found, max_i, max_j, max_score = True, p.x_size - 1, j, v
-
-    # unsigned-underflow quirk: see ops/bsw_ref.py find_max
-    fe_low_ok = p.x_size - 1 - FORCE_MAXGAP_LEN >= 0
-    for k in range(len(diag_is)):
-        i = int(diag_is[k])
-        if (not p.force_end) or (fe_low_ok and
-                                 p.x_size - 1 - FORCE_MAXGAP_LEN <= i < p.x_size):
-            v = int(diag_vals[k])
-            if not found or v > max_score:
-                j = p.end_a - p.begin_a - i + band
-                found, max_i, max_j, max_score = True, i, j, v
-    return found, max_i, max_j, max_score
 
 
 def _pad_dim(n: int) -> int:

@@ -1,8 +1,8 @@
 """The port's row-form forward (ops/bsw_row.py), the row-major walk and
 the engine's row and host-traceback paths on the CPU (the plain
 versions), against the JAX package's row-form Pallas kernel (interpret
-mode), the port's exact oracle (ops/bsw_ref.py), and the JAX package's
-merge.
+mode), the JAX package's exact oracle (gam_ngs_tpu/ops/bsw_ref.py:
+fill_matrix and bsw_align), and the JAX package's merge.
 
 All quantities are integers, so every comparison is exact; homology is
 compared with abs=1e-12.
@@ -16,12 +16,12 @@ import torch_problems as tp
 from gam_ngs_tpu.models.merge import MergeOptions as JaxMergeOptions
 from gam_ngs_tpu.models.merge import run_merge as jax_run_merge
 from gam_ngs_tpu.ops.bsw_batch import BswEngine as JaxEngine
+from gam_ngs_tpu.ops.bsw_ref import bsw_align, fill_matrix
 from gam_ngs_tpu_torch import cli
 from gam_ngs_tpu_torch.models.create import CreateOptions, run_create
 from gam_ngs_tpu_torch.models.merge import MergeOptions, run_merge
 from gam_ngs_tpu_torch.ops import bsw_row
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
-from gam_ngs_tpu_torch.ops.bsw_ref import fill_matrix
 from gam_ngs_tpu_torch.ops.bsw_row import forward_row, forward_row_torch
 from gam_ngs_tpu_torch.ops.bsw_walk import ROW, walk
 from test_merge_pipeline import _build_inputs
@@ -31,6 +31,11 @@ CPU = torch.device("cpu")
 OUTPUTS = (".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
            ".noblocks.AF.fasta", ".notmerged.fasta")
 quiet = lambda *_: None  # noqa: E731
+
+
+def oracle(problems, band):
+    """The JAX package's bsw_align on each problem."""
+    return [bsw_align(*pr, band=band) for pr in problems]
 
 
 def row_forward(problems, band):
@@ -92,7 +97,7 @@ def test_forward_row_matches_jax_row_kernel(all_full):
 
 def check_row_cells(problems, band):
     """Directions at every valid cell, the last row and the pos==end_a
-    diagonal against the port's bsw_ref.fill_matrix.  Returns (cells
+    diagonal against the JAX package's fill_matrix.  Returns (cells
     checked, cells past the exact rows i <= band of a begin_a >= 0
     problem, which the lean body computes)."""
     dirs, last_row, diag, preps, _xw = row_forward(problems, band)
@@ -143,7 +148,7 @@ def test_row_walk_matches_oracle_length():
     summary, edits = walk(dirs, a, b, ba, ea, xs, fe, last_row, diag, band,
                           lmax, True, layout=ROW)
     assert len(preps) == len(problems)
-    for k, w in enumerate(tp.oracle(problems, band)):
+    for k, w in enumerate(oracle(problems, band)):
         if summary[12, k]:
             assert int(summary[2, k]) == w.length, k
             assert int(summary[11, k]) == w.score, k
@@ -169,7 +174,8 @@ ROW_SETS = {
     + [("edges_band30", "host_python", "edits")])
 def test_row_engine_matches_bsw_align(name, traceback, fetch, monkeypatch):
     """kernel="row" with the device walk, and the host walk (C++, and its
-    Python twin under GAM_NO_NATIVE), against bsw_ref.bsw_align."""
+    Python twin under GAM_NO_NATIVE), against the JAX package's
+    bsw_align."""
     band, make = ROW_SETS[name]
     if traceback == "host_python":
         monkeypatch.setenv("GAM_NO_NATIVE", "1")
@@ -178,7 +184,7 @@ def test_row_engine_matches_bsw_align(name, traceback, fetch, monkeypatch):
     eng = BswEngine(CPU, band=band, fetch=fetch, kernel="row",
                     traceback=traceback)
     got = eng.align_many(problems)
-    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, band))):
+    for k, (g, w) in enumerate(zip(got, oracle(problems, band))):
         assert tp.same_alignment(g, w), k
     # the host walk always gives edit strings
     want_lean = traceback == "device" and fetch == "lean"
@@ -195,7 +201,7 @@ def test_gam_kernel_row_selects_the_row_path(monkeypatch):
 
     monkeypatch.setattr(bsw_row, "forward_row_torch", spy)
     problems = tp.soak_problems(12)
-    want = tp.oracle(problems, 150)
+    want = oracle(problems, 150)
     before = BswEngine.kernel_launches()
     for env, kw, rows in ((None, {}, False), ("row", {}, True),
                           ("row", {"kernel": "antidiag"}, False),
