@@ -8,7 +8,10 @@ Phases (all by default; any failure raises and exits non-zero):
           per source, in parallel), with ptxas' register and spill lines
   parity  each kernel against its plain PyTorch version on the card,
           bit for bit (256-problem soak at band 150, band-30 edge cases,
-          band 300): the anti-diagonal forward with the walk over its
+          band 300, ragged buckets of x_size 1 to the window at bands 30
+          and 300, find-max ties at bands 30 and 150, band 700 with four
+          warps per problem, anti-diagonal only): the anti-diagonal
+          forward with the walk over its
           words, the row forward with the walk over row-major words; and
           the CUDA engine against the exact host aligner (merge --device
           oracle's bsw_align) on every soak problem: anti-diagonal in
@@ -29,13 +32,16 @@ Phases (all by default; any failure raises and exits non-zero):
           host walk).  Each kernel against its plain version, bit for
           bit, on the inputs the merges gave it (the anti-diagonal
           path's first chunk of every batch x window shape, the row
-          path's 8-problem chunk); one warm merge and one under
-          torch.profiler (device time per kernel) of the anti-diagonal
-          path, and one profiled merge of the row path
+          path's 8-problem chunk); warm merges of the anti-diagonal path
+          (one, then the engine's stream pool against one stream, in
+          turns), one under torch.profiler (device time per kernel and
+          device busy time) of the anti-diagonal path, and one profiled
+          merge of the row path
   timing  each kernel with CUDA events (median of 5 after a warm-up)
           beside one call of its plain version, outputs compared bit for
           bit, and the walks over the two forwards' words compared with
-          each other: B=64, band 150, XW 1024 / 4096
+          each other: B=64, band 150, XW 1024 / 4096; ms, GCUPS, the
+          bound and ns per serial step (the longest problem's steps)
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
@@ -233,10 +239,17 @@ def phase_parity(res):
     sets = [("soak256_band150", tp.soak_problems(256), 150),
             ("edges_band30", tp.edge_problems(), 30),
             ("soak32_band300", tp.soak_problems(32, seed=7, max_len=700),
-             300)]
+             300),
+            ("ragged_band30", tp.ragged_problems(30), 30),
+            ("ragged_band300", tp.ragged_problems(300), 300),
+            ("ties_band30", tp.tie_problems(), 30),
+            ("ties_band150", tp.tie_problems(), 150),
+            ("soak8_band700", tp.soak_problems(8, seed=3, max_len=600), 700)]
     for name, problems, band in sets:
         fargs, fe, xw = packed_inputs(problems, band)
-        for fwd in FORWARDS:
+        # the row kernel takes 2 * band + 1 <= 1024 lanes
+        for fwd in (f for f in FORWARDS
+                    if f != "bsw_row" or 2 * band + 1 <= 1024):
             for with_edits in (False, True):
                 errs, _ms = kernel_vs_plain(fwd, fargs, fe,
                                             lmax_of(xw, band), with_edits)
@@ -366,15 +379,30 @@ class KeepChunkInputs:
             setattr(bsw_engine, attr, fn)
 
 
-def device_ms_by_kernel(prof) -> dict[str, float]:
-    """Device time (ms) of every kernel and copy in a torch.profiler
-    trace, by name."""
-    out: dict[str, float] = {}
+def device_ms_by_kernel(prof) -> dict[str, tuple[float, int]]:
+    """Device time (ms) and count of every kernel and copy in a
+    torch.profiler trace, by name."""
+    out: dict[str, tuple[float, int]] = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        ms, n = out.get(e.key, (0.0, 0))
+        out[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return out
+
+
+def device_busy_ms(prof) -> float:
+    """Time (ms) in which at least one kernel or copy ran on the card:
+    the union of the trace's device intervals (streams overlap)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def reset_launches() -> None:
@@ -476,6 +504,24 @@ def phase_full(tmp, res):
         raise AssertionError("a warm merge wrote another .gam.fasta")
     log(f"[full] warm merge (antidiag): wall {wall:.4f} s, phases (s) "
         f"{json.dumps(mr['phases'], sort_keys=True)}")
+    # the chunks of a round on the engine's stream pool against one
+    # stream, in turns (pool, 1, 1, pool, three times); medians
+    pool = BswEngine.STREAMS
+    aligns: dict[int, list[float]] = {pool: [], 1: []}
+    try:
+        for n in (pool, 1, 1, pool) * 3:
+            BswEngine.STREAMS = n
+            wall, mr = merge("antidiag", f"streams{n}")
+            if (d / f"streams{n}.gam.fasta").read_bytes() != want:
+                raise AssertionError("a warm merge wrote another .gam.fasta")
+            aligns[n].append(mr["phases"]["align"])
+            log(f"[full] warm merge (antidiag), {n} stream(s): wall "
+                f"{wall:.4f} s, align {mr['phases']['align']:.4f} s")
+    finally:
+        BswEngine.STREAMS = pool
+    log("[full] align phase, median of 6 warm merges: " + ", ".join(
+        f"{n} stream(s) {statistics.median(v):.4f} s"
+        for n, v in aligns.items()))
     from torch.profiler import ProfilerActivity, profile
 
     for path in ("antidiag", "row"):
@@ -483,12 +529,16 @@ def phase_full(tmp, res):
                                  ProfilerActivity.CUDA]) as prof:
             wall, mr = merge(path, f"prof_{path}")
         dev_ms = device_ms_by_kernel(prof)
-        busy = sum(dev_ms.values())
+        total = sum(ms for ms, _n in dev_ms.values())
+        busy = device_busy_ms(prof)
         log(f"[full] profiled merge ({path}): wall {wall:.4f} s, align "
             f"{mr['phases']['align']:.4f} s, device busy {busy:.3f} ms "
-            f"({100 * busy / (wall * 1e3):.2f}% of wall)")
-        for name, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"[full]   {v:10.3f} ms  {name[:90]}")
+            f"({100 * busy / (wall * 1e3):.2f}% of wall; kernels and "
+            f"copies sum to {total:.3f} ms)")
+        for name, (v, n) in sorted(dev_ms.items(),
+                                   key=lambda kv: -kv[1][0])[:8]:
+            log(f"[full]   {v:10.3f} ms  {n:4d} x {v / n:8.3f} ms  "
+                f"{name[:80]}")
 
 
 def timing_problems(xw, band, B=64, seed=11):
@@ -584,11 +634,19 @@ def phase_timing(res, card):
         if max_err(out["bsw_walk"], out["bsw_walk_row"]):
             raise AssertionError(f"[timing] XW={xw}: the walks over the two "
                                  f"forwards' words differ")
+        # the serial steps a launch lasts: its longest problem's
+        steps = {"bsw_antidiag": int((2 * (xs - 1) + 2 * band + 1).max()),
+                 "bsw_row": int(((xs + 15) // 16 * 16).max()),
+                 "bsw_walk": int(out["bsw_walk"][0][2].max()),
+                 "bsw_walk_row": int(out["bsw_walk_row"][0][2].max())}
         for k, ms in t.items():
             extra = ""
             if k in bounds:
                 extra = (f", bound {bounds[k][0]:.6f} ms "
                          f"({bounds[k][1]}), {ms / bounds[k][0]:.1f}x it")
+            if k in steps:
+                extra += (f", {ms * 1e6 / steps[k]:.1f} ns/step "
+                          f"({steps[k]} steps)")
             log(f"[timing] {card} | B=64 band={band} XW={xw} {k}: "
                 f"{ms:.4f} ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS"
                 + extra)

@@ -80,7 +80,7 @@ __global__ void row_forward_kernel(
     const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
     const int* __restrict__ begin_a, const int* __restrict__ end_a,
     const int* __restrict__ a_len, const int* __restrict__ x_size,
-    const int* __restrict__ force_start, int xw, int band, Scoring s,
+    const int* __restrict__ force_start, int aw, int xw, int band, Scoring s,
     int* __restrict__ dirs, int* __restrict__ last_row,
     int* __restrict__ diag) {
   extern __shared__ int smem[];
@@ -97,7 +97,6 @@ __global__ void row_forward_kernel(
 
   const int ba = begin_a[b], ea = end_a[b], al = a_len[b], xs = x_size[b];
   const bool fs = force_start[b] != 0;
-  const int aw = xw + 2 * band + 2;
   const uint8_t* ap = a_pk + (size_t)b * (aw / 2);
   const uint8_t* bp = b_pk + (size_t)b * (xw / 2);
   int* dir_out = dirs + (size_t)b * (xw / 16) * YS;
@@ -241,8 +240,8 @@ __global__ void row_forward_kernel(
 extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
                                const void* begin_a, const void* end_a,
                                const void* a_len, const void* x_size,
-                               const void* force_start, int B, int xw,
-                               int band, int match, int mismatch, int nn,
+                               const void* force_start, int B, int aw,
+                               int xw, int band, int match, int mismatch, int nn,
                                int nx, int gap, int force_max_gap, int neg,
                                void* dirs, void* last_row, void* diag,
                                void* stream) {
@@ -253,7 +252,7 @@ extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
   row_forward_kernel<<<B, threads, shmem, (cudaStream_t)stream>>>(
       (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
       (const int*)end_a, (const int*)a_len, (const int*)x_size,
-      (const int*)force_start, xw, band, s, (int*)dirs, (int*)last_row,
+      (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,
       (int*)diag);
   return (int)cudaGetLastError();
 }

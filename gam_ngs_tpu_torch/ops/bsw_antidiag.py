@@ -4,13 +4,20 @@
 runs `forward_antidiag_torch`, the same step loop in torch ops, for CPU
 tensors.  Both compute bsw_ref.fill_matrix cell for cell on the valid
 band cells and produce the same output bit for bit on the whole output
-(both run the same exact/lean bodies; see the kernel's source note for
-the coordinate map and the layout).
+(both run the same exact/lean bodies over the same steps; see the
+kernel's source note for the coordinate map and the layout).
 
-Inputs (B problems): a_pk (B, AW/2) and b_pk (B, XW/2) uint8 4-bit
-packed windows (BswEngine._pack4: a band-aligned, a_win[q] =
-a[begin_a - band + q], sentinel 15; b from begin_b, zero padded), and
-begin_a, end_a, a_len, x_size, force_start (B,) int32.
+Each problem runs its own steps, `problem_steps`: 2*(x_size-1) +
+2*band + 1, the last step holding a cell of row x_size-1 (none for an
+empty problem).  Its later direction bits and words are 0, and its
+last row and diagonal hold only cells of those steps.  Steps below
+`exact_steps(band)` (every step when begin_a < 0) run the exact body.
+
+Inputs (B problems): a_pk (B, a_width/2) and b_pk (B, XW/2) uint8
+4-bit packed windows (BswEngine._pack4: a band-aligned, a_win[q] =
+a[begin_a - band + q], sentinel 15, rows padded to a_width(XW, band)
+codes; b from begin_b, zero padded; codes 0-4), and begin_a, end_a,
+a_len, x_size, force_start (B,) int32.
 Outputs: dirs (B, NP, band+1) int32, last_row and diag (B, 2*band+1)
 int32.
 """
@@ -47,6 +54,28 @@ def antidiag_dims(xw: int, band: int) -> tuple[int, int, int, int]:
     return K, T, -(-T // 16), xw + 2 * band + 2
 
 
+def a_width(xw: int, band: int) -> int:
+    """The a window's width as uploaded: AW rounded up to 32 codes, so
+    each problem's a_pk row is a whole number of 16-byte chunks (the
+    kernel stages the windows with 16-byte cp.async copies)."""
+    return -(-antidiag_dims(xw, band)[3] // 32) * 32
+
+
+def exact_steps(band: int) -> int:
+    """Steps that run the exact body in every problem: t <= 2*band+2
+    holds each row-0 and pos == 0 cell of a begin_a >= 0 problem; the
+    count is rounded up to a whole direction word."""
+    return -(-(2 * band + 3) // 16) * 16
+
+
+def problem_steps(x_size: torch.Tensor, band: int, T: int) -> torch.Tensor:
+    """Steps each problem runs: its last cell (x_size-1, 2*band) is at
+    t = 2*(x_size-1) + 2*band; 0 for an empty problem; at most T."""
+    xs = x_size.to(torch.int64)
+    return torch.where(xs > 0, torch.clamp(2 * (xs - 1) + 2 * band + 1,
+                                           max=T), 0)
+
+
 def unpack4(pk: torch.Tensor) -> torch.Tensor:
     """(B, W/2) uint8 -> (B, W) int32 codes (low nibble first)."""
     p = pk.to(torch.int32)
@@ -76,6 +105,8 @@ def forward_antidiag_torch(a_pk, b_pk, begin_a, end_a, a_len, x_size,
     col = lambda v: v.to(torch.int32).reshape(B, 1)
     ba, ea, al, xs = col(begin_a), col(end_a), col(a_len), col(x_size)
     fs = col(force_start) != 0
+    steps = problem_steps(x_size, band, T).reshape(B, 1)
+    n_exact = exact_steps(band)
     full_all = ba < 0
     jdb = ea - ba + band
     xs1 = xs - 1
@@ -88,7 +119,8 @@ def forward_antidiag_torch(a_pk, b_pk, begin_a, end_a, a_len, x_size,
     prev2 = torch.zeros((B, K), **i32)
     packed = torch.zeros((B, K), dtype=torch.int64, device=dev)
 
-    for t in range(T):
+    t_end = int(steps.max()) if B else 0
+    for t in range(t_end):
         base, par = t >> 1, t & 1
         chalf = base + par
         ac = a_ext[:, chalf:chalf + K]
@@ -105,7 +137,7 @@ def forward_antidiag_torch(a_pk, b_pk, begin_a, end_a, a_len, x_size,
         jmax, j0 = j == ymax, j == 0
         mid = ~j0 & ~jmax
 
-        full_now = t <= 2 * band + 2
+        full_now = t < n_exact
         if full_now or bool(full_all.any()):
             i = base - k
             pos = ba - band + chalf + k
@@ -159,15 +191,17 @@ def forward_antidiag_torch(a_pk, b_pk, begin_a, end_a, a_len, x_size,
             row, d = row_l, d_l
         row = row.to(torch.int32)
 
+        live = t < steps  # (B, 1): the problem's own steps
         n = (YS - par + 1) // 2  # lanes whose j = par + 2k is in the band
-        dg_hit = (k == jdb - chalf)[:, :n]
-        lr_hit = (k == base - xs1)[:, :n]
+        dg_hit = (live & (k == jdb - chalf))[:, :n]
+        lr_hit = (live & (k == base - xs1))[:, :n]
         diag[:, par::2] = torch.where(dg_hit, row[:, :n], diag[:, par::2])
         last_row[:, par::2] = torch.where(lr_hit, row[:, :n],
                                           last_row[:, par::2])
 
+        d = torch.where(live, d, 0)
         packed = packed | (d.to(torch.int64) << (2 * (t & 15)))
-        if (t & 15) == 15 or t == T - 1:
+        if (t & 15) == 15 or t == t_end - 1:
             # the word's bit pattern as int32 (bit 31 is the sign)
             dirs[:, t >> 4, :] = torch.where(packed >= 1 << 31,
                                              packed - (1 << 32), packed)
@@ -215,12 +249,20 @@ def forward_antidiag(a_pk, b_pk, begin_a, end_a, a_len, x_size,
     K, T, NP, _ = antidiag_dims(xw, band)
     if not 1 <= K <= 1024:
         raise ValueError(f"band {band}: the kernel takes band + 1 <= 1024")
-    _check("a_pk", a_pk, torch.uint8, (B, aw // 2), dev)
+    _check("a_pk", a_pk, torch.uint8, (B, a_width(xw, band) // 2), dev)
     _check("b_pk", b_pk, torch.uint8, (B, xw // 2), dev)
     for name, v in (("begin_a", begin_a), ("end_a", end_a),
                     ("a_len", a_len), ("x_size", x_size),
                     ("force_start", force_start)):
         _check(name, v, torch.int32, (B,), dev)
+    # the kernel copies whole 16-byte chunks of the rows
+    if xw % 32 or a_pk.data_ptr() % 16 or b_pk.data_ptr() % 16:
+        raise ValueError("a_pk and b_pk rows must start on 16-byte "
+                         f"boundaries (window {xw})")
+    scores = (MATCH_S, MISMATCH_S, NN_S, NX_S)
+    if max(scores) - min(scores) > 63:
+        raise ValueError(f"scores {scores}: the kernel packs each in 6 bits")
+    # every word is written: a problem's own steps, then zeros
     dirs = torch.empty((B, NP, K), dtype=torch.int32, device=dev)
     last_row = torch.empty((B, 2 * band + 1), dtype=torch.int32, device=dev)
     diag = torch.empty_like(last_row)

@@ -11,7 +11,12 @@ Device traceback: the find-max + walk kernel (ops.bsw_walk) follows the
 forward on the device.  Every chunk is dispatched before any result is
 fetched; each chunk's fetch is one (13, B) int32 summary (`lean`), or
 that plus the edit codes (`edits`).  The direction words stay on the
-device and are freed once the walk is queued.
+device and are freed once the walk is queued.  On CUDA each chunk's
+upload, kernels and fetch run on one stream of a fixed pool of
+STREAMS, taken in turn, so the chunks of a round run at the same time
+(a chunk of B problems fills B warps of the card).  The pool is the
+device's, shared by every engine of the process, so the allocator's
+per-stream caches serve later merges too.
 
 Host traceback (the JAX engine's _run_chunk): per chunk the row forward
 runs on the device, its direction words, last row and diagonal are
@@ -25,13 +30,14 @@ kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
 import torch
 
 from . import bsw_antidiag, bsw_row, bsw_walk
-from .bsw_antidiag import antidiag_dims, forward_antidiag
+from .bsw_antidiag import a_width, antidiag_dims, forward_antidiag
 from .bsw_host import (
     _pack4,
     _PackedDirs,
@@ -70,6 +76,9 @@ class BswEngine:
     runs the row-form forward.
     """
 
+    STREAMS = 4  # CUDA streams the chunks of a round are spread over
+    _POOLS: dict = {}  # device -> its CUDA streams, made at first use
+
     def __init__(self, device: torch.device, band: int = DEFAULT_BAND_SIZE,
                  max_batch: int = 64, hbm_budget_bytes: int = 2 << 30,
                  fetch: str = "auto", kernel: str = "auto",
@@ -93,6 +102,8 @@ class BswEngine:
         # rows, and live DP rows vs padded xw*B rows
         self.util = {"live": 0, "batch": 0, "rows_live": 0,
                      "rows_padded": 0}
+        self._streams: list = []  # this engine's STREAMS of the pool
+        self._turn = 0
 
     @classmethod
     def from_reference(cls, ref, device: torch.device) -> "BswEngine":
@@ -170,7 +181,7 @@ class BswEngine:
         return b
 
     def _pack_chunk(self, chunk, preps, xw):
-        aw = antidiag_dims(xw, self.band)[3]
+        aw = a_width(xw, self.band)
         B = self._pad_batch(len(chunk))
         a_win = np.full((B, aw), 255, np.uint8)
         b_win = np.zeros((B, xw), np.uint8)
@@ -200,31 +211,52 @@ class BswEngine:
                 torch.from_numpy(b_pk).to(dev),
                 torch.from_numpy(scal).to(dev).unbind(0))
 
+    def _stream(self):
+        """The chunk's stream: the next of the pool on CUDA, else a
+        context that changes nothing."""
+        if self.device.type != "cuda":
+            return None, contextlib.nullcontext()
+        if not self._streams:
+            pool = BswEngine._POOLS.setdefault(self.device, [])
+            while len(pool) < self.STREAMS:
+                pool.append(torch.cuda.Stream(self.device))
+            self._streams = pool[:self.STREAMS]
+        stream = self._streams[self._turn % len(self._streams)]
+        self._turn += 1
+        return stream, torch.cuda.stream(stream)
+
     def _dispatch(self, chunk, preps, xw):
-        """Upload one chunk and queue its two kernels; returns what
-        _collect needs without waiting for the device."""
+        """Upload one chunk and queue its two kernels on the chunk's
+        stream; returns what _collect needs without waiting for the
+        device.  The chunk's tensors are made on that stream too."""
         band = self.band
         lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
         lean = self._lean()
         row = self._use_row()
-        a_d, b_d, (begin_a, end_a, a_len, x_size, fstart, fend) = \
-            self._upload(chunk, preps, xw)
-        forward = forward_row if row else forward_antidiag
-        dirs, last_row, diag = forward(
-            a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
-        summary, edits = walk(dirs, a_d, b_d, begin_a, end_a, x_size, fend,
-                              last_row, diag, band, lmax,
-                              with_edits=not lean,
-                              layout=ROW if row else ANTIDIAG)
-        return chunk, summary, edits
+        stream, ctx = self._stream()
+        with ctx:
+            a_d, b_d, (begin_a, end_a, a_len, x_size, fstart, fend) = \
+                self._upload(chunk, preps, xw)
+            forward = forward_row if row else forward_antidiag
+            dirs, last_row, diag = forward(
+                a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
+            summary, edits = walk(dirs, a_d, b_d, begin_a, end_a, x_size,
+                                  fend, last_row, diag, band, lmax,
+                                  with_edits=not lean,
+                                  layout=ROW if row else ANTIDIAG)
+        return chunk, summary, edits, stream
 
     def _collect(self, pend, preps, out):
-        chunk, summary, edits = pend
-        s = summary.cpu().numpy()  # the one device->host fetch (lean)
+        chunk, summary, edits, stream = pend
+        # the fetches queue on the chunk's stream, behind its walk
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            s = summary.cpu().numpy()  # the one device->host fetch (lean)
+            e = None if edits is None else edits.cpu().numpy()
         (xf, yf, cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy,
          score, found) = (s[k] for k in range(13))
         band = self.band
-        if edits is None:
+        if e is None:
             for t, i in enumerate(chunk):
                 p = preps[i]
                 if not found[t]:
@@ -251,7 +283,6 @@ class BswEngine:
                     b_size=len(p.b), score=int(score[t]), homology=hom,
                     lean=(n, int(matches[t]), fm, lm))
             return
-        e = edits.cpu().numpy()
         for t, i in enumerate(chunk):
             p = preps[i]
             if not found[t]:

@@ -7,7 +7,7 @@ and produce the same output bit for bit on the whole output (the kernel
 source note gives the per-lane cases and the layout).
 
 Inputs are forward_antidiag's (B problems): a_pk (B, AW/2) and b_pk
-(B, XW/2) uint8 4-bit packed windows with AW = XW + 2*band + 2, and
+(B, XW/2) uint8 4-bit packed windows with AW = a_width(XW, band), and
 begin_a, end_a, a_len, x_size, force_start (B,) int32.
 Outputs: dirs (B, XW/16, 2*band+1) int32, row i of band lane j at word
 i >> 4, bits 2*(i & 15); last_row and diag (B, 2*band+1) int32 in
@@ -31,6 +31,7 @@ from .bsw_antidiag import (
     NN_S,
     NX_S,
     _check,
+    a_width,
     unpack4,
 )
 from .bsw_ref import FORCE_MAXGAP_LEN, GAP
@@ -183,7 +184,7 @@ def _kernel():
         from .._build import library
 
         fn = library().bsw_row_forward
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _fn = fn
@@ -209,7 +210,8 @@ def forward_row(a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
                          f"lane and takes 2 * band + 1 <= 1024")
     if xw % 16:
         raise ValueError(f"window {xw}: a multiple of 16 rows")
-    _check("a_pk", a_pk, torch.uint8, (B, (xw + 2 * band + 2) // 2), dev)
+    aw = a_width(xw, band)
+    _check("a_pk", a_pk, torch.uint8, (B, aw // 2), dev)
     _check("b_pk", b_pk, torch.uint8, (B, xw // 2), dev)
     for name, v in (("begin_a", begin_a), ("end_a", end_a),
                     ("a_len", a_len), ("x_size", x_size),
@@ -226,8 +228,8 @@ def forward_row(a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(a_pk.data_ptr(), b_pk.data_ptr(), begin_a.data_ptr(),
                         end_a.data_ptr(), a_len.data_ptr(),
-                        x_size.data_ptr(), force_start.data_ptr(), B, xw,
-                        band, MATCH_S, MISMATCH_S, NN_S, NX_S, GAP,
+                        x_size.data_ptr(), force_start.data_ptr(), B, aw,
+                        xw, band, MATCH_S, MISMATCH_S, NN_S, NX_S, GAP,
                         FORCE_MAXGAP_LEN, NEG, dirs.data_ptr(),
                         last_row.data_ptr(), diag.data_ptr(), stream)
     if err:

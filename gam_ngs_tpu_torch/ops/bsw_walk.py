@@ -169,6 +169,9 @@ def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
         _check(name, v, torch.int32, (B,), dev)
     _check("last_row", last_row, torch.int32, (B, YS), dev)
     _check("diag", diag, torch.int32, (B, YS), dev)
+    if aw % 8 or xw % 8 or a_pk.data_ptr() % 4 or b_pk.data_ptr() % 4:
+        raise ValueError("a_pk and b_pk rows must start on 4-byte "
+                         f"boundaries (widths {aw}, {xw})")
     last_word = xw - 1 if layout == ROW else 2 * (xw - 1) + 2 * band
     if last_word >= 16 * NP:
         raise ValueError(f"dirs has {NP} words per lane, too few for "

@@ -151,10 +151,10 @@ def test_engine_band300_long_matches_bsw_align(fetch):
         assert w.length > 400 and tp.same_alignment(g, w), k
 
 
-@pytest.mark.parametrize("all_full", [False, True])
-def test_forward_matches_jax_antidiag_kernel(all_full):
-    """Valid cells against pallas_forward_antidiag_raw (B=8, XW=128,
-    band=30, interpret mode); all_full=True batches hold begin_a < 0."""
+def check_against_jax_kernel(problems, all_full):
+    """Valid cells of the port's forward against
+    pallas_forward_antidiag_raw (B=8, XW=128, band=30, interpret
+    mode)."""
     import jax
 
     from gam_ngs_tpu.ops.bsw_pallas import (
@@ -163,10 +163,6 @@ def test_forward_matches_jax_antidiag_kernel(all_full):
     )
 
     band, xw = 30, 128
-    pool = tp.soak_problems(200, seed=5, max_len=110)
-    pos = [pr for pr in pool if pr[1] >= 0]
-    neg = [pr for pr in pool if pr[1] < 0]
-    problems = neg[:4] + pos[:4] if all_full else pos[:8]
     dirs, last_row, diag, preps, pxw = port_forward(problems, band)
     assert pxw == xw and len(preps) == 8
     aw_j = jax_dims(xw, band)[2]
@@ -195,6 +191,46 @@ def test_forward_matches_jax_antidiag_kernel(all_full):
             i = p.end_a - p.begin_a + band - j
             if 0 <= i < xs and 0 <= p.end_a < len(p.a):
                 assert diag[t, j] == jdg[t, j], (t, j)
+
+
+@pytest.mark.parametrize("all_full", [False, True])
+def test_forward_matches_jax_antidiag_kernel(all_full):
+    """Valid cells against pallas_forward_antidiag_raw (B=8, XW=128,
+    band=30, interpret mode); all_full=True batches hold begin_a < 0."""
+    pool = tp.soak_problems(200, seed=5, max_len=110)
+    pos = [pr for pr in pool if pr[1] >= 0]
+    neg = [pr for pr in pool if pr[1] < 0]
+    check_against_jax_kernel(neg[:4] + pos[:4] if all_full else pos[:8],
+                             all_full)
+
+
+def test_ragged_forward_matches_jax_antidiag_kernel():
+    """A ragged bucket (x_size 1 to 128, each problem stopping at its own
+    last step, two begin_a < 0 tails) against the JAX kernel."""
+    problems = [pr for k, pr in enumerate(tp.ragged_problems(30))
+                if k not in (2, 6)]
+    check_against_jax_kernel(problems, all_full=True)
+
+
+@pytest.mark.parametrize("band", [30, 300])
+def test_forward_stops_at_each_problems_last_step(band):
+    """In a ragged bucket (x_size 1 up to the window) every direction
+    bit and word past a problem's last step, 2*(x_size-1) + 2*band, is
+    0, and the valid cells still equal bsw_ref.fill_matrix."""
+    problems = tp.ragged_problems(band)
+    dirs, _lr, _dg, preps, _xw = port_forward(problems, band)
+    words = dirs.astype(np.int64) & 0xffffffff
+    short = 0
+    for t, p in enumerate(preps):
+        last = 2 * (p.x_size - 1) + 2 * band
+        w, bits = last >> 4, 2 * ((last & 15) + 1)
+        assert (words[t, w + 1:] == 0).all(), t
+        assert (words[t, w] >> bits == 0).all(), t
+        assert words[t, w].any() or words[t, :w].any(), t
+        short += w + 1 < dirs.shape[1]
+    assert short >= 5
+    checked, lean = check_forward_cells(problems, band)
+    assert checked > 1000 and lean > 0
 
 
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
@@ -259,7 +295,7 @@ def test_find_max_and_walk_match_reference(band):
     from gam_ngs_tpu.ops.bsw_ref import find_max
 
     problems = tp.soak_problems(12, seed=9, max_len=200) + \
-        tp.edge_problems()[6:11]
+        tp.edge_problems()[6:11] + tp.tie_problems()
     a_pk, b_pk, scal, preps, xw = tp.pack_problems(problems, band)
     t = [torch.from_numpy(v) for v in (a_pk, b_pk, *scal)]
     a, b, ba, ea, al, xs, fs, fe = t

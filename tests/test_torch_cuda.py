@@ -43,12 +43,23 @@ PROBLEM_SETS = {
     "edges_band30": (30, tp.edge_problems),
     "soak32_band300": (300, lambda: tp.soak_problems(32, seed=7,
                                                      max_len=700)),
+    # x_size 1 .. the window in one chunk, begin_a < 0 tails
+    "ragged_band30": (30, lambda: tp.ragged_problems(30)),
+    "ragged_band300": (300, lambda: tp.ragged_problems(300)),
+    # last row and diagonal share the find-max maximum
+    "ties_band30": (30, tp.tie_problems),
+    "ties_band150": (150, tp.tie_problems),
+}
+# bands past the row kernel's 2 * band + 1 <= 1024: the anti-diagonal
+# forward's four warps per problem
+WIDE_SETS = {
+    "soak8_band700": (700, lambda: tp.soak_problems(8, seed=3, max_len=600)),
 }
 
 
-@pytest.mark.parametrize("name", sorted(PROBLEM_SETS))
+@pytest.mark.parametrize("name", sorted(PROBLEM_SETS | WIDE_SETS))
 def test_kernels_match_plain(dev, name):
-    band, make = PROBLEM_SETS[name]
+    band, make = (PROBLEM_SETS | WIDE_SETS)[name]
     (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(make(), band, dev)
     n0 = (bsw_antidiag.launches, bsw_walk.launches)
     fwd = forward_antidiag(a, b, ba, ea, al, xs, fs, band)
@@ -92,6 +103,39 @@ def test_row_kernel_and_row_walk_match_plain(dev, name):
             assert torch.equal(got[1], want[1])
     torch.cuda.synchronize()
     assert (bsw_row.launches, bsw_walk.launches) == (n0[0] + 1, n0[1] + 2)
+
+
+@pytest.mark.parametrize("B", [1, 8, 9])
+def test_kernels_take_any_batch(dev, B):
+    """B problems straight to the wrappers, B not a multiple of the
+    problems a block holds: both forwards and both walk layouts equal
+    their plain versions."""
+    (a, b, *scal), xw = _inputs(tp.soak_problems(12, seed=B), 150, dev)
+    args = [v[:B].contiguous() for v in (a, b, *scal)]
+    a, b, ba, ea, al, xs, fs, fe = args
+    lmax = -(-(2 * xw + 300 + 8) // 4) * 4
+    for fwd, plain, layout in ((forward_antidiag, forward_antidiag_torch, 0),
+                               (forward_row, forward_row_torch, ROW)):
+        got = fwd(a, b, ba, ea, al, xs, fs, 150)
+        for k, p in zip(got, plain(a, b, ba, ea, al, xs, fs, 150)):
+            assert k.shape[0] == B and torch.equal(k, p)
+        wargs = (got[0], a, b, ba, ea, xs, fe, got[1], got[2], 150, lmax,
+                 True)
+        for k, p in zip(walk(*wargs, layout=layout),
+                        walk_torch(*wargs, layout=layout)):
+            assert torch.equal(k, p)
+
+
+def test_engine_chunks_in_flight_match_bsw_align(dev):
+    """256 soak problems in chunks of at most 32, spread over the
+    engine's stream pool, held to bsw_align."""
+    problems = tp.soak_problems(256)
+    eng = BswEngine(dev, max_batch=32)
+    got = eng.align_many(problems)
+    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, 150))):
+        assert tp.same_alignment(g, w), k
+    assert eng.dispatches >= 3
+    assert len(eng._streams) == BswEngine.STREAMS > 1
 
 
 @pytest.mark.parametrize("traceback,fetch", [

@@ -9,6 +9,8 @@ banded-SW helpers reach the shared host code only through the port.
 - edge_problems: the cases of tests/test_bsw_antidiag.py (mixed flags,
   force_end underflow windows, negative begin_a, force_start with a deep
   pos==0 cell) and force_start on an A shorter than 11;
+- ragged_problems: one bucket of x_size from 1 row to the window;
+- tie_problems: find-max candidates that tie (last row and diagonal);
 - pack_problems: problems -> the forward kernel's numpy inputs, one
   window bucket;
 - oracle / same_alignment: the exact host aligner's results and the
@@ -106,6 +108,48 @@ def edge_problems(seed: int = 71):
     a = rng.integers(0, 4, size=8).astype(np.uint8)
     b = np.concatenate([a, rng.integers(0, 4, 30).astype(np.uint8)])
     problems.append((a, 0, 7, b, 0, len(b) - 1, True, False))
+    return problems
+
+
+def ragged_problems(band: int, seed: int = 13):
+    """One window bucket of ragged x_size, from 1 row up to the bucket's
+    width, at any band: the window 128 at band < 64, else 384.  Mixed
+    flags, N in every fourth, a begin_a < 0 tail window in every fifth."""
+    rng = np.random.default_rng(seed)
+    xw = 128 if band < 64 else 384
+    sizes = sorted({1, 2, 3, 5, 16, 17, xw // 4, xw // 2 + 1, xw - 1, xw})
+    problems = []
+    for k, n in enumerate(sizes):
+        a = rng.integers(0, 5 if k % 4 == 0 else 4,
+                         size=n + 2 * band).astype(np.uint8)
+        b = mutate(rng, a[band:band + n])
+        b = np.concatenate([b, rng.integers(0, 4, n).astype(np.uint8)])[:n]
+        ba = -int(rng.integers(1, band + 1)) if k % 5 == 4 else band
+        problems.append((a, ba, len(a) - 1 - 3 * k, b, 0, n - 1,
+                         k % 3 == 0, k % 3 == 1))
+    return problems
+
+
+def tie_problems(seed: int = 17):
+    """Problems whose find-max candidates tie: homopolymer (all A, all
+    N) and period-4 sequences aligned to themselves, where every band
+    lane of a row scores the same and the pos == end_a diagonal's best
+    equals the last row's; with and without force_end, begin_a 0 / band
+    / < 0, end_a at and before the window's end."""
+    rng = np.random.default_rng(seed)
+    problems = []
+    for k, (code, n) in enumerate([(0, 40), (4, 33), (None, 64), (0, 9),
+                                   (None, 120), (4, 70), (0, 200)]):
+        m = n + 60
+        a = (np.full(m, code, np.uint8) if code is not None
+             else np.tile(np.arange(4, dtype=np.uint8), m // 4 + 1)[:m])
+        b = a[:n].copy()
+        ba = (0, 30, -12)[k % 3]
+        ea = (n - 1 + max(ba, 0), m - 1, n // 2 + 5)[k % 3]
+        problems.append((a, ba, ea, b, 0, n - 1, k == 4, k % 2 == 1))
+    # a random b against a homopolymer: ties among negative scores
+    b = rng.integers(1, 4, size=50).astype(np.uint8)
+    problems.append((np.zeros(80, np.uint8), 5, 60, b, 0, 49, False, False))
     return problems
 
 
