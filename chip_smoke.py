@@ -1,6 +1,6 @@
 """Smoke run of gam_ngs_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--phases header,build,parity,small,full,timing]
+    python3 chip_smoke.py [--phases header,build,parity,small,full,dist,timing]
 
 Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
@@ -10,13 +10,15 @@ Phases (all by default; any failure raises and exits non-zero):
           bit for bit (256-problem soak at band 150, band-30 edge cases,
           band 300, ragged buckets of x_size 1 to the window at bands 30
           and 300, find-max ties at bands 30 and 150, band 700 with four
-          warps per problem, anti-diagonal only): the anti-diagonal
-          forward with the walk over its
-          words, the row forward with the walk over row-major words; and
-          the CUDA engine against the exact host aligner (merge --device
-          oracle's bsw_align) on every soak problem: anti-diagonal in
-          lean and edits fetch, kernel="row" in lean and edits fetch, and
-          the host traceback
+          warps per problem and two row lanes a thread, bands 2000 and
+          4000 with four and eight row lanes a thread, row forward
+          only): the anti-diagonal forward with the walk over its
+          words, the row forward with the walk over row-major words (up
+          to band 1023); and the CUDA engine against the exact host
+          aligner (merge --device oracle's bsw_align) on every soak
+          problem: anti-diagonal in lean and edits fetch, kernel="row"
+          in lean and edits fetch, and the host traceback, then
+          kernel="row" at band 700 and the host traceback at band 2000
   small   gam create + gam merge through the port's CLI on the small
           junction corpus and a fork + bubble corpus: the six outputs of
           merge --device cuda, of merge --device cuda under GAM_KERNEL=row
@@ -37,11 +39,22 @@ Phases (all by default; any failure raises and exits non-zero):
           turns), one under torch.profiler (device time per kernel and
           device busy time) of the anti-diagonal path, and one profiled
           merge of the row path
+  dist    the multi-process merge: the junction corpus, the full
+          phase's 5 Mbp corpus (one graph) and the 5 Mbp genome split
+          into 25 graphs (every 4th slave cut on a master cut), each
+          merged by one child process and by two ranks of `python -m
+          gam_ngs_tpu_torch.cli merge --coordinator 127.0.0.1:<port>
+          --device cuda` sharing the card: host 0's six outputs equal the
+          one process's, the ranks' aligned cells sum to its count, a
+          rank that aligned launched the forward and the walk (both
+          ranks on the split corpus); each rank's cells, launches, align
+          seconds and peak RSS, and both walls
   timing  each kernel with CUDA events (median of 5 after a warm-up)
           beside one call of its plain version, outputs compared bit for
           bit, and the walks over the two forwards' words compared with
           each other: B=64, band 150, XW 1024 / 4096; ms, GCUPS, the
-          bound and ns per serial step (the longest problem's steps)
+          bound and ns per serial step (the longest problem's steps);
+          then the row forward at bands 700 and 2000, XW 4096
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
@@ -57,7 +70,9 @@ import argparse
 import json
 import os
 import pathlib
+import re
 import resource
+import socket
 import statistics
 import subprocess
 import sys
@@ -100,7 +115,7 @@ from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
     walk_torch,
 )
 
-PHASES = ("header", "build", "parity", "small", "full", "timing")
+PHASES = ("header", "build", "parity", "small", "full", "dist", "timing")
 OUTPUTS = (".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
            ".noblocks.AF.fasta", ".notmerged.fasta")
 DEV = torch.device("cuda")
@@ -122,6 +137,7 @@ KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row")
 OPS_PER_CELL = 17
 OPS_PER_WALK_STEP, OPS_PER_CANDIDATE = 31, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+ANTIDIAG_MAX_BAND = 1023  # ops/bsw_antidiag.py: band + 1 <= 1024 lanes
 
 
 def log(msg: str) -> None:
@@ -244,17 +260,26 @@ def phase_parity(res):
             ("ragged_band300", tp.ragged_problems(300), 300),
             ("ties_band30", tp.tie_problems(), 30),
             ("ties_band150", tp.tie_problems(), 150),
-            ("soak8_band700", tp.soak_problems(8, seed=3, max_len=600), 700)]
+            ("soak8_band700", tp.soak_problems(8, seed=3, max_len=600), 700),
+            ("soak4_band2000", tp.soak_problems(4, seed=9, max_len=400),
+             2000),
+            ("soak4_band4000", tp.soak_problems(4, seed=4, max_len=300),
+             4000)]
     for name, problems, band in sets:
         fargs, fe, xw = packed_inputs(problems, band)
-        # the row kernel takes 2 * band + 1 <= 1024 lanes
-        for fwd in (f for f in FORWARDS
-                    if f != "bsw_row" or 2 * band + 1 <= 1024):
+        for fwd in FORWARDS:
+            if fwd == "bsw_antidiag" and band > ANTIDIAG_MAX_BAND:
+                continue
+            # the walk stages 16 word rows of 2*band+1 lanes in shared
+            # memory: it takes the row form's words up to band 1023
+            walk_fe = fe if fwd == "bsw_antidiag" or band <= 1023 else None
             for with_edits in (False, True):
-                errs, _ms = kernel_vs_plain(fwd, fargs, fe,
+                errs, _ms = kernel_vs_plain(fwd, fargs, walk_fe,
                                             lmax_of(xw, band), with_edits)
                 note_err(res, f"[parity] {name} {fwd} edits={with_edits}",
                          errs)
+                if walk_fe is None:
+                    break
     problems = sets[0][1]
     want = tp.oracle(problems, 150)
     for fetch in ("lean", "edits"):
@@ -263,6 +288,12 @@ def phase_parity(res):
         check_engine(problems, want, f"row fetch={fetch}", fetch=fetch,
                      kernel="row")
     check_engine(problems, want, "row traceback=host", traceback="host")
+    # the row forward's wide instances inside the engine
+    for band, kw, seed, max_len in ((700, {"kernel": "row"}, 3, 1600),
+                                    (2000, {"traceback": "host"}, 9, 400)):
+        problems = tp.soak_problems(6, seed=seed, max_len=max_len)
+        check_engine(problems, tp.oracle(problems, band),
+                     f"band={band} {kw}", band=band, **kw)
 
 
 def run_cli(argv) -> None:
@@ -421,6 +452,7 @@ def phase_full(tmp, res):
              "native"])
     log(f"[full] create {time.time() - t0:.2f} s")
     blocks = f"{d}/out.blocks"
+    res["full_corpus"] = (d, c)
 
     def merge(path, prefix):
         t0 = time.time()
@@ -541,6 +573,158 @@ def phase_full(tmp, res):
                 f"{name[:80]}")
 
 
+def resident_mib(pid: int) -> int:
+    """A process's peak resident size in MiB (VmHWM of /proc/<pid>/status,
+    or its current VmRSS where the kernel reports no peak); 0 once it has
+    exited."""
+    try:
+        with open(f"/proc/{pid}/status") as fh:
+            vm = dict(line.split(":", 1) for line in fh if ":" in line)
+    except OSError:
+        return 0
+    kb = vm.get("VmHWM") or vm.get("VmRSS") or "0 kB"
+    return int(kb.split()[0]) // 1024
+
+
+def mib(v: int) -> str:
+    return f"{v} MiB" if v else "not measured"
+
+
+def merge_processes(d, c, blocks, prefix, nproc, timeout_s=300):
+    """One merge through `python -m gam_ngs_tpu_torch.cli merge --device
+    cuda` in nproc child processes (nproc > 1: a gloo group on 127.0.0.1,
+    every rank on this card).  Returns (wall s, each rank's log, each
+    rank's peak RSS in MiB).  The peak is resident_mib's, read every 20 ms
+    while the child runs: the CLI's own MAX Memory line (getrusage) counts
+    this process's resident size too, which a child inherits across fork
+    and exec.  A rank that exits non-zero or outlives timeout_s
+    fails the phase; every child is killed before this returns."""
+    argv = [sys.executable, "-m", "gam_ngs_tpu_torch.cli", *merge_argv(
+        c["ml"], c["sl"], c["mfa"], c["sfa"], blocks, f"{d}/{prefix}",
+        "cuda")]
+    if nproc > 1:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{s.getsockname()[1]}"
+        argv += ["--coordinator", coord, "--num-processes", str(nproc)]
+    env = dict(os.environ, PYTHONPATH=ROOT, GAM_BARRIER_TIMEOUT="240")
+    procs = []
+    hwm = [0] * nproc
+    t0 = time.time()
+    try:
+        for k in range(nproc):
+            logf = open(f"{d}/{prefix}.rank{k}.log", "w")
+            procs.append((subprocess.Popen(
+                argv + (["--process-id", str(k)] if nproc > 1 else []),
+                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+                logf))
+        while any(p.poll() is None for p, _f in procs):
+            if time.time() - t0 > timeout_s:
+                raise TimeoutError(f"{prefix}: the merge outlived "
+                                   f"{timeout_s} s")
+            for k, (p, _f) in enumerate(procs):
+                hwm[k] = max(hwm[k], resident_mib(p.pid))
+            time.sleep(0.02)
+        wall = time.time() - t0
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    logs = [open(f"{d}/{prefix}.rank{k}.log").read() for k in range(nproc)]
+    for k, (p, _f) in enumerate(procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{prefix} rank {k} exited {p.returncode}:\n"
+                               + logs[k][-3000:])
+    return wall, logs, hwm
+
+
+def rank_numbers(log: str, k: int) -> dict:
+    """A rank's aligned cells, kernel launches, align seconds and device
+    from its log (parallel/distributed.py and device.py lines)."""
+    def grab(pattern):
+        m = re.search(pattern, log)
+        if not m:
+            raise AssertionError(f"rank {k}: no line {pattern!r}:\n"
+                                 + log[-3000:])
+        return m.group(1)
+
+    return {"cells": int(grab(rf"\[dist\] host {k}: aligned cells = (\d+)")),
+            "launches": json.loads(grab(
+                rf"\[dist\] host {k}: kernel launches = (\{{.*\}})")),
+            "align_s": float(grab(
+                rf"\[dist\] host {k}: align compute seconds = ([\d.]+)")),
+            "device": grab(rf"process {k}/\d+: --device cuda -> (\S+)")}
+
+
+def phase_dist(tmp, res):
+    """The multi-process merge: the junction corpus (fails fast), the
+    full phase's 5 Mbp corpus (one graph: rank 1 has nothing to align)
+    and the same 5 Mbp genome with every 4th slave cut on a master cut
+    (bench/dist_scale.py's corpus: 25 graphs), each merged by one child
+    process and by two ranks of merge --coordinator on this card.  Host
+    0's six outputs must equal the one-process run's, the ranks' aligned
+    cells must sum to the one-process run's, every rank that aligned must
+    have launched the forward and the walk, and on the split corpus both
+    ranks must have aligned."""
+    for name in ("junction", "scale5", "scale5_split4"):
+        if name == "scale5" and "full_corpus" in res:
+            d, c = res["full_corpus"]
+        else:
+            d = pathlib.Path(tmp) / f"dist_{name}"
+            d.mkdir()
+            if name == "junction":
+                genome, ml, sl, mfa, sfa = tp.junction_corpus(d)
+                c = {"genome": genome, "ml": ml, "sl": sl, "mfa": mfa,
+                     "sfa": sfa}
+            else:
+                c = tp.scale_corpus(5.0, d, break_every=4 * (
+                    name == "scale5_split4"))
+            run_cli(["create", "--master-bam", c["ml"], "--slave-bam",
+                     c["sl"], "--min-block-size", "10", "--output",
+                     f"{d}/out", "--device", "native"])
+        blocks = f"{d}/out.blocks"
+        wall1, _logs, hwm1 = merge_processes(d, c, blocks, "dist1", 1)
+        m1 = json.load(open(f"{d}/dist1.metrics.json"))
+        wall2, logs, hwm2 = merge_processes(d, c, blocks, "dist2", 2)
+        for ext in OUTPUTS:
+            if (d / f"dist2{ext}").read_bytes() != \
+                    (d / f"dist1{ext}").read_bytes():
+                raise AssertionError(f"{name}: two-process {ext} differs "
+                                     f"from the one-process run's")
+        merged = "".join(tp.read_fasta_seqs(f"{d}/dist2.gam.fasta"))
+        if name != "scale5_split4" and c["genome"] not in merged:
+            raise AssertionError(f"{name}: genome not reconstructed")
+        ranks = [dict(rank_numbers(log, k), peak_rss_mib=hwm2[k])
+                 for k, log in enumerate(logs)]
+        cells1 = m1["counters"]["aligned_cells"]
+        for k, r in enumerate(ranks):
+            log(f"[dist] {name} rank {k}: device {r['device']}, aligned "
+                f"cells {r['cells']}, launches {r['launches']}, align "
+                f"{r['align_s']:.4f} s, peak RSS {mib(r['peak_rss_mib'])}")
+            ran = {k2: r["launches"].get(k2, 0) > 0
+                   for k2 in ("bsw_antidiag", "bsw_walk")}
+            if set(ran.values()) != {r["cells"] > 0} or (
+                    name == "scale5_split4" and r["cells"] == 0):
+                raise AssertionError(f"{name} rank {k}: {r['cells']} cells, "
+                                     f"launches {r['launches']}")
+        if sum(r["cells"] for r in ranks) != cells1:
+            raise AssertionError(f"{name}: ranks aligned "
+                                 f"{[r['cells'] for r in ranks]} cells, the "
+                                 f"one-process run {cells1}")
+        cells = " + ".join(str(r["cells"]) for r in ranks)
+        aligns = ", ".join(f"{r['align_s']:.4f}" for r in ranks)
+        log(f"[dist] {name}: {m1['counters']['graphs']} graphs; six outputs "
+            f"of 2 processes byte-identical to 1 process; aligned cells "
+            f"{cells} = {cells1}; merge wall "
+            f"1 process {wall1:.4f} s (align {m1['phases']['align']:.4f} s, "
+            f"peak RSS {mib(hwm1[0])}), 2 processes {wall2:.4f} s (align "
+            f"{aligns} s)")
+        res.setdefault("dist", {})[name] = {
+            "wall1": wall1, "wall2": wall2, "ranks": ranks}
+
+
 def timing_problems(xw, band, B=64, seed=11):
     rng = np.random.default_rng(seed)
     problems = []
@@ -652,6 +836,27 @@ def phase_timing(res, card):
                 + extra)
         res[f"timing_xw{xw}"] = t
         res[f"bound_xw{xw}"] = bounds
+    # the row forward's wide instances (2, 4 lanes a thread) at XW 4096
+    xw = 4096
+    for band in (700, 2000):
+        fargs, _fe, xw_b = packed_inputs(timing_problems(xw, band), band)
+        if xw_b != xw:
+            raise AssertionError(f"timing problems fell in bucket {xw_b}")
+        xs = fargs[5]
+        t = {}
+        t["bsw_row"], got = cuda_ms(lambda: forward_row(*fargs))
+        want = timed_once(t, "bsw_row_plain", lambda: forward_row_torch(*fargs))
+        note_err(res, f"[timing] B=64 band={band} XW={xw}",
+                 {"bsw_row": max_err(got, want)})
+        b_ms, b_by = bound("bsw_row", fargs, None, got, ops_rate)
+        steps = int(((xs + 15) // 16 * 16).max())
+        cells = int(xs.sum()) * (2 * band + 1)
+        ms = t["bsw_row"]
+        log(f"[timing] {card} | B=64 band={band} XW={xw} bsw_row: {ms:.4f} "
+            f"ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS, bound {b_ms:.6f} "
+            f"ms ({b_by}), {ms / b_ms:.1f}x it, {ms * 1e6 / steps:.1f} "
+            f"ns/step ({steps} steps); plain {t['bsw_row_plain']:.4f} ms")
+        res[f"timing_row_band{band}"] = (ms, b_ms)
 
 
 def kernels_line(res) -> dict:
@@ -711,6 +916,8 @@ def main() -> int:
             phase_small(tmp)
         if "full" in phases:
             phase_full(tmp, res)
+        if "dist" in phases:
+            phase_dist(tmp, res)
         if "timing" in phases:
             phase_timing(res, card)
     if "jax" in sys.modules or "gam_ngs_tpu" in sys.modules:

@@ -6,9 +6,16 @@ The flags are those of gam_ngs_tpu/cli.py (the reference binaries'
 flags).  merge --device picks the banded-SW engine's torch device:
 `auto` and `cuda` need a CUDA GPU and fail without one, `cpu` runs the
 kernels' plain PyTorch versions, `oracle` the exact host aligner.
-create --device picks the block scan: `native` (C++), `oracle` (exact
-Python) or `auto` (native when available).  Multi-process runs
-(--coordinator) are not ported yet.
+`cuda:N` names one GPU.  create --device picks the block scan:
+`native` (C++), `oracle` (exact Python) or `auto` (native when
+available).
+
+merge --coordinator host:port --num-processes N --process-id k runs one
+of N processes of a multi-process merge over a torch.distributed gloo
+group: every process runs the same command, each aligns its share of
+the graph partitions (on cuda:(k mod the GPUs it sees) under auto and
+cuda), and host 0 writes the outputs.  create runs in one process only:
+multi-process create needs the device block join, which is not ported.
 """
 
 from __future__ import annotations
@@ -19,10 +26,11 @@ import sys
 
 
 def _add_dist(p):
-    g = p.add_argument_group("multi-process (not ported yet)")
+    g = p.add_argument_group("multi-process (torch.distributed, gloo)")
     g.add_argument("--coordinator", default="",
-                   help="coordinator address host:port (multi-process "
-                        "runs are not ported to gam_ngs_tpu_torch yet)")
+                   help="coordinator address host:port; enables multi-"
+                        "process mode (every process runs the same "
+                        "command, host 0 writes the outputs; merge only)")
     g.add_argument("--num-processes", type=int, default=None)
     g.add_argument("--process-id", type=int, default=None)
 
@@ -50,6 +58,14 @@ def _add_create(sub):
     _add_dist(p)
 
 
+def _merge_device(name: str) -> str:
+    if name in ("auto", "cuda", "cpu", "oracle") or (
+            name.startswith("cuda:") and name[5:].isdigit()):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"invalid device {name!r} (auto, cuda, cuda:N, cpu, oracle)")
+
+
 def _add_merge(sub):
     p = sub.add_parser("merge", help="merge two assemblies given blocks")
     p.add_argument("--master-bam", required=True)
@@ -66,11 +82,10 @@ def _add_merge(sub):
     p.add_argument("--output-graphs", action="store_true")
     p.add_argument("--output", default="out")
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--device", choices=["auto", "cuda", "cpu", "oracle"],
-                   default="auto",
-                   help="banded-SW engine: the CUDA kernels (auto, cuda), "
-                        "their plain PyTorch versions (cpu) or the exact "
-                        "host oracle")
+    p.add_argument("--device", type=_merge_device, default="auto",
+                   help="banded-SW engine: the CUDA kernels (auto, cuda, "
+                        "cuda:N), their plain PyTorch versions (cpu) or "
+                        "the exact host oracle")
     p.add_argument("--checkpoint", action="store_true",
                    help="partition-level resume via <output>.ckpt/")
     _add_dist(p)
@@ -92,10 +107,11 @@ def main(argv=None) -> int:
     pidx.add_argument("bams", nargs="+", help="BAM files or bam-list files")
     args = ap.parse_args(argv)
 
-    if getattr(args, "coordinator", ""):
+    if getattr(args, "coordinator", "") and args.cmd == "create":
         raise NotImplementedError(
-            "--coordinator: multi-process runs are not ported to "
-            "gam_ngs_tpu_torch yet")
+            "create --coordinator: multi-process create needs the device "
+            "block join (the JAX package shards it when nproc > 1), which "
+            "gam_ngs_tpu_torch has not ported; run create in one process")
 
     from .utils.misc import max_rss_line
 
@@ -118,31 +134,41 @@ def main(argv=None) -> int:
 
     if args.cmd == "merge":
         from .models.merge import MergeOptions, run_merge
+        from .parallel import distributed
 
-        engine = None
-        if args.device != "oracle":
-            from .device import resolve_device
-            from .ops.bsw_engine import BswEngine
+        if args.coordinator:
+            pid, n = distributed.init_distributed(
+                args.coordinator, args.num_processes, args.process_id)
+            print(f"[main] process {pid}/{n} joined {args.coordinator}",
+                  flush=True)
+        try:
+            engine = None
+            if args.device != "oracle":
+                from .device import resolve_device
+                from .ops.bsw_engine import BswEngine
 
-            engine = BswEngine(resolve_device(args.device))
-        run_merge(MergeOptions(
-            master_bam_file=args.master_bam,
-            slave_bam_file=args.slave_bam,
-            master_mp_bam_file=args.master_mp_bam,
-            slave_mp_bam_file=args.slave_mp_bam,
-            blocks_file=args.blocks_file,
-            master_fasta_file=args.master_fasta,
-            slave_fasta_file=args.slave_fasta,
-            min_block_size=args.min_block_size,
-            threads_num=args.threads,
-            coverage_threshold=args.coverage_filter,
-            no_multiplicity_filter=args.no_mult_filter,
-            output_file_prefix=args.output,
-            output_graphs=args.output_graphs,
-            debug=args.debug,
-            engine=engine,
-            checkpoint=args.checkpoint,
-        ))
+                engine = BswEngine(resolve_device(args.device))
+            run_merge(MergeOptions(
+                master_bam_file=args.master_bam,
+                slave_bam_file=args.slave_bam,
+                master_mp_bam_file=args.master_mp_bam,
+                slave_mp_bam_file=args.slave_mp_bam,
+                blocks_file=args.blocks_file,
+                master_fasta_file=args.master_fasta,
+                slave_fasta_file=args.slave_fasta,
+                min_block_size=args.min_block_size,
+                threads_num=args.threads,
+                coverage_threshold=args.coverage_filter,
+                no_multiplicity_filter=args.no_mult_filter,
+                output_file_prefix=args.output,
+                output_graphs=args.output_graphs,
+                debug=args.debug,
+                engine=engine,
+                checkpoint=args.checkpoint,
+            ))
+        finally:
+            if args.coordinator:
+                distributed.shutdown()
         print(max_rss_line("[main]"))  # src/gam-merge.cc:64
         return 0
 

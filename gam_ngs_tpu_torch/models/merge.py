@@ -1,7 +1,9 @@
 """gam merge — assembly reconciliation pipeline on a torch device.
 
 gam_ngs_tpu/models/merge.py::run_merge (Merge::execute, Merge.cc:90),
-single process.  With an engine (ops.bsw_engine.BswEngine) the two
+in one process or, under a torch.distributed process group, sharded by
+graph partition over the group (parallel.distributed; host 0 writes
+every output).  With an engine (ops.bsw_engine.BswEngine) the two
 device stages run on the engine's torch.device: the partition edge
 count (ops.region_score) and the banded-SW align stage (the CUDA
 kernels on a GPU).  engine=None is the oracle path: bsw_ref.bsw_align
@@ -36,6 +38,11 @@ from ..merge.builder import (
 from ..merge.pctg import write_pctg_descriptors
 from ..ops import region_score
 from ..ops.bsw_ref import bsw_align
+from ..parallel.distributed import (
+    allgather_obj,
+    distributed_build_pctgs,
+    proc_info,
+)
 from ..utils.metrics import Metrics
 from ..utils.misc import format_time, path_basename
 
@@ -62,18 +69,49 @@ class MergeOptions:
 
 def _open_with_stats(bam_list: str, isize_file: str, tag: str,
                      log) -> MultiBam:
+    pid, nproc = proc_info()
+    if nproc > 1:
+        # Distributed: open DEFERRED (headers only) — the partition
+        # phase later decodes just the contig runs this host's graphs
+        # touch (.gidx ranged decode).  Host 0 alone computes/loads +
+        # writes stats, then the file-codec round-tripped (%.6g)
+        # values are allgathered so every host builds edge weights /
+        # z-scores / int(mean±3std) cutoffs from IDENTICAL numbers — a
+        # non-writer recomputing full-precision stats (or racing host
+        # 0's write on a shared filesystem) would silently diverge the
+        # sharded pctg build.
+        mb = MultiBam.open_deferred(bam_list)
+        stats = None
+        if pid == 0:
+            if not os.path.exists(isize_file):
+                log(f"[bam] Computing statistics of {tag}")
+                mb.load_all()  # stats need the full stream on host 0
+                mb.compute_statistics(require_paired_flag=False)
+                mb.write_stats_to_file(isize_file)
+            mb.read_stats_from_file(isize_file)
+            stats = (list(mb.isize_mean), list(mb.isize_std),
+                     list(mb.coverage))
+        stats = allgather_obj(stats)[0]
+        mb.isize_mean, mb.isize_std, mb.coverage = (
+            list(stats[0]), list(stats[1]), list(stats[2]))
+        _log_opened(mb, bam_list, tag, log)
+        return mb
     mb = MultiBam.open(bam_list)
     if not os.path.exists(isize_file):
         log(f"[bam] Computing statistics of {tag}")
         mb.compute_statistics(require_paired_flag=False)
         mb.write_stats_to_file(isize_file)
     mb.read_stats_from_file(isize_file)
+    _log_opened(mb, bam_list, tag, log)
+    return mb
+
+
+def _log_opened(mb: MultiBam, bam_list: str, tag: str, log) -> None:
     log(f"[bam] {tag} file {path_basename(bam_list)} successfully opened:")
     for i in range(mb.size):
         log(f"      {mb.filenames()[i]}\n         inserts size = "
             f"{mb.isize_mean[i]} +/- {mb.isize_std[i]}\tcoverage = "
             f"{mb.coverage[i]}")
-    return mb
 
 
 def run_merge(opts: MergeOptions, log=print):
@@ -90,6 +128,14 @@ def run_merge(opts: MergeOptions, log=print):
         torch.cuda.synchronize(device)
         metrics.phases["device_warmup"] = time.time() - t0
 
+    pid, nproc = proc_info()
+    is_writer = pid == 0
+    if nproc > 1:
+        log(f"[main] distributed merge: process {pid}/{nproc}")
+        if engine is None:
+            raise ValueError("distributed merge requires the batched "
+                             "engine (--device != oracle)")
+
     if opts.no_multiplicity_filter:
         log("[warning] option --noMultiplicityFilter provided; reads will be "
             "processed as if they had unique mapping")
@@ -97,6 +143,12 @@ def run_merge(opts: MergeOptions, log=print):
     stats_chunks: list[str] = []
 
     log("[main] Loading blocks")
+    if nproc > 1 and not os.path.exists(opts.blocks_file):
+        raise FileNotFoundError(
+            f"[error] distributed merge on process {pid}/{nproc}: blocks "
+            f"file {opts.blocks_file!r} does not exist on this host — "
+            f"run `gam create` to completion first, before any process "
+            f"of the merge starts")
     blocks = blocks_io.load_blocks(opts.blocks_file, opts.min_block_size)
     log(f"[main] Loaded blocks = {len(blocks)}")
 
@@ -163,7 +215,7 @@ def run_merge(opts: MergeOptions, log=print):
     graphs, gstats, finish_weights = partition_blocks(
         blocks, master_bam, master_mp, slave_bam, slave_mp, device,
         opts.no_multiplicity_filter, opts.output_graphs,
-        defer_weights=True)
+        defer_weights=True, shard=((pid, nproc) if nproc > 1 else None))
     stats_chunks.append(gstats.stats_text())
     metrics.phases["partition"] = time.time() - t_phase
 
@@ -176,6 +228,15 @@ def run_merge(opts: MergeOptions, log=print):
     # the JAX package's per-shape compile times: no compile step here,
     # the key stays so both packages write one .metrics.json key set
     metrics.counters["partition_shape_first_call_s"] = {}
+    if nproc > 1:
+        # the sharded ingest: the alignment rows this host decoded (its
+        # owned contig runs only)
+        resident = sum(
+            len(f.table)
+            for mb2 in (master_bam, master_mp, slave_bam, slave_mp)
+            if mb2 is not None for f in mb2.files)
+        log(f"[dist] resident alignment rows after partition = {resident}")
+        metrics.count("resident_rows", resident)
 
     # ---- sequences ----
     log("[main] Loading contig sequences")
@@ -203,26 +264,33 @@ def run_merge(opts: MergeOptions, log=print):
     metrics.phases["partition_fetch"] = time.time() - t_phase
 
     # ---- slave contigs without blocks ----
-    fn = opts.output_file_prefix + ".noblocks.BF.fasta"
-    log(f"[merge] Writing contigs with no blocks to file: {fn}")
-    with open(fn, "wb") as fh:
-        for i in range(len(slave_nbc_bf)):
-            if slave_nbc_bf[i]:
-                fh.write(format_record(slave_ref[i].name, slave_ref[i].seq))
+    if is_writer:
+        fn = opts.output_file_prefix + ".noblocks.BF.fasta"
+        log(f"[merge] Writing contigs with no blocks to file: {fn}")
+        with open(fn, "wb") as fh:
+            for i in range(len(slave_nbc_bf)):
+                if slave_nbc_bf[i]:
+                    fh.write(format_record(slave_ref[i].name,
+                                           slave_ref[i].seq))
 
-    fn = opts.output_file_prefix + ".noblocks.AF.fasta"
-    log(f"[merge] Writing contigs with no blocks (after filtering) to "
-        f"file: {fn}")
-    with open(fn, "wb") as fh:
-        for i in range(len(slave_nbc_af)):
-            if slave_nbc_af[i]:
-                fh.write(format_record(slave_ref[i].name, slave_ref[i].seq))
+        fn = opts.output_file_prefix + ".noblocks.AF.fasta"
+        log(f"[merge] Writing contigs with no blocks (after filtering) to "
+            f"file: {fn}")
+        with open(fn, "wb") as fh:
+            for i in range(len(slave_nbc_af)):
+                if slave_nbc_af[i]:
+                    fh.write(format_record(slave_ref[i].name,
+                                           slave_ref[i].seq))
 
     # ---- build paired contigs (canonical sequential graph order) ----
     pctg_list = []
     cells0 = engine.cells_aligned if engine is not None else 0
     t_merge = time.time()
-    if engine is not None:
+    if nproc > 1:
+        pctg_list.extend(distributed_build_pctgs(
+            graphs, master_ref, slave_ref, master_bam, slave_bam, engine,
+            opts.no_multiplicity_filter, opts.debug, log=log))
+    elif engine is not None:
         build_pctgs_batched(
             graphs, master_ref, slave_ref, master_bam, slave_bam,
             pctg_list, engine, opts.no_multiplicity_filter,
@@ -279,13 +347,15 @@ def run_merge(opts: MergeOptions, log=print):
             used[cid] = True
     used |= slave_nbc_bf
     used |= slave_nbc_af
-    fn = opts.output_file_prefix + ".notmerged.fasta"
-    log(f"[merge] writing slave's unused contigs (not even partially "
-        f"merged) on file \"{fn}\"")
-    with open(fn, "wb") as fh:
-        for i in range(len(used)):
-            if not used[i]:
-                fh.write(format_record(slave_ref[i].name, slave_ref[i].seq))
+    if is_writer:
+        fn = opts.output_file_prefix + ".notmerged.fasta"
+        log(f"[merge] writing slave's unused contigs (not even partially "
+            f"merged) on file \"{fn}\"")
+        with open(fn, "wb") as fh:
+            for i in range(len(used)):
+                if not used[i]:
+                    fh.write(format_record(slave_ref[i].name,
+                                           slave_ref[i].seq))
 
     # ---- unmerged master contigs as single-contig pctgs ----
     used_master = np.zeros(len(master_ref), bool)
@@ -296,23 +366,24 @@ def run_merge(opts: MergeOptions, log=print):
     old_pctg_id = pctg_id
     generate_single_ctg_pctgs(pctg_list, ctg_ids, master_ref, pctg_id)
 
-    # ---- outputs ----
-    fn = opts.output_file_prefix + ".gam.fasta"
-    log(f"[merge] Writing paired contigs on file: {fn}")
-    with open(fn, "wb") as fh:
-        for p in pctg_list:
-            fh.write(format_record(p.name, p.sequence()))
+    # ---- outputs (host 0 only under a process group) ----
+    if is_writer:
+        fn = opts.output_file_prefix + ".gam.fasta"
+        log(f"[merge] Writing paired contigs on file: {fn}")
+        with open(fn, "wb") as fh:
+            for p in pctg_list:
+                fh.write(format_record(p.name, p.sequence()))
 
-    fn = opts.output_file_prefix + ".pctgs"
-    log(f"[merge] Writing paired contigs descriptors on file: {fn}")
-    with open(fn, "w") as fh:
-        write_pctg_descriptors(fh, pctg_list, master_ref, slave_ref,
-                               old_pctg_id)
+        fn = opts.output_file_prefix + ".pctgs"
+        log(f"[merge] Writing paired contigs descriptors on file: {fn}")
+        with open(fn, "w") as fh:
+            write_pctg_descriptors(fh, pctg_list, master_ref, slave_ref,
+                                   old_pctg_id)
 
-    with open(opts.output_file_prefix + ".stats", "w") as fh:
-        for chunk in stats_chunks:
-            fh.write(chunk)
+        with open(opts.output_file_prefix + ".stats", "w") as fh:
+            for chunk in stats_chunks:
+                fh.write(chunk)
 
-    metrics.write(opts.output_file_prefix + ".metrics.json")
+        metrics.write(opts.output_file_prefix + ".metrics.json")
     log(f"[merge] Total execution time = {format_time(time.time() - t_start)}")
     return pctg_list

@@ -37,6 +37,7 @@ from .bsw_antidiag import (
 from .bsw_ref import FORCE_MAXGAP_LEN, GAP
 
 launches = 0  # kernel launches by forward_row (CPU runs not counted)
+MAX_BAND = 4095  # 2 * band + 1 lanes, at most 8 a thread, 1024 threads
 
 _fn = None
 
@@ -205,11 +206,15 @@ def forward_row(a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
     B = a_pk.shape[0]
     xw = 2 * b_pk.shape[1]
     YS = 2 * band + 1
-    if not 1 <= YS <= 1024:
-        raise ValueError(f"band {band}: the kernel runs one thread per band "
-                         f"lane and takes 2 * band + 1 <= 1024")
+    if not 0 <= band <= MAX_BAND:
+        raise ValueError(f"band {band}: the kernel holds at most 8 band "
+                         f"lanes in each of 1024 threads and takes band <= "
+                         f"{MAX_BAND}")
     if xw % 16:
         raise ValueError(f"window {xw}: a multiple of 16 rows")
+    if not all(-8 <= v <= 7 for v in (MATCH_S, MISMATCH_S, NN_S, NX_S)):
+        raise ValueError("the kernel keeps a cell's score in 4 bits: "
+                         "scores must lie in [-8, 7]")
     aw = a_width(xw, band)
     _check("a_pk", a_pk, torch.uint8, (B, aw // 2), dev)
     _check("b_pk", b_pk, torch.uint8, (B, xw // 2), dev)

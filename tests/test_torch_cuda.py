@@ -50,10 +50,19 @@ PROBLEM_SETS = {
     "ties_band30": (30, tp.tie_problems),
     "ties_band150": (150, tp.tie_problems),
 }
-# bands past the row kernel's 2 * band + 1 <= 1024: the anti-diagonal
-# forward's four warps per problem
+# the anti-diagonal forward's four warps per problem; the row forward's
+# two lanes a thread
 WIDE_SETS = {
     "soak8_band700": (700, lambda: tp.soak_problems(8, seed=3, max_len=600)),
+}
+# past the anti-diagonal forward's band 1023: the row forward's four and
+# eight lanes a thread (the walk stages 16 word rows of 2*band+1 lanes and
+# takes the row form's words up to band 1023)
+ROW_ONLY_SETS = {
+    "soak4_band2000": (2000, lambda: tp.soak_problems(4, seed=9,
+                                                      max_len=400)),
+    "soak4_band4000": (4000, lambda: tp.soak_problems(4, seed=4,
+                                                      max_len=300)),
 }
 
 
@@ -82,15 +91,20 @@ def test_kernels_match_plain(dev, name):
                                                           n0[1] + 2)
 
 
-@pytest.mark.parametrize("name", sorted(PROBLEM_SETS))
+@pytest.mark.parametrize("name", sorted(PROBLEM_SETS | WIDE_SETS
+                                         | ROW_ONLY_SETS))
 def test_row_kernel_and_row_walk_match_plain(dev, name):
-    band, make = PROBLEM_SETS[name]
+    band, make = (PROBLEM_SETS | WIDE_SETS | ROW_ONLY_SETS)[name]
     (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(make(), band, dev)
     n0 = (bsw_row.launches, bsw_walk.launches)
     fwd = forward_row(a, b, ba, ea, al, xs, fs, band)
     plain = forward_row_torch(a, b, ba, ea, al, xs, fs, band)
     for k, p in zip(fwd, plain):
         assert torch.equal(k, p)
+    if name in ROW_ONLY_SETS:
+        torch.cuda.synchronize()
+        assert bsw_row.launches == n0[0] + 1
+        return
     dirs, last_row, diag = fwd
     lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
     for edits in (False, True):
@@ -159,7 +173,7 @@ def test_row_wrapper_raises_on_mixed_devices(dev):
     with pytest.raises(ValueError, match="begin_a"):
         forward_row(a, b, ba.cpu(), ea, al, xs, fs, 150)
     with pytest.raises(ValueError, match="band"):
-        forward_row(a, b, ba, ea, al, xs, fs, 600)
+        forward_row(a, b, ba, ea, al, xs, fs, 4096)
     dirs, last_row, diag = forward_row(a, b, ba, ea, al, xs, fs, 150)
     lmax = -(-(2 * xw + 300 + 8) // 4) * 4
     with pytest.raises(ValueError, match="a_pk"):
@@ -167,6 +181,20 @@ def test_row_wrapper_raises_on_mixed_devices(dev):
              False, layout=ROW)
     with pytest.raises(ValueError, match="dirs"):  # row words, antidiag walk
         walk(dirs, a, b, ba, ea, xs, fe, last_row, diag, 150, lmax, False)
+
+
+@pytest.mark.parametrize("band,kw", [(700, {"kernel": "row"}),
+                                     (2000, {"traceback": "host"})])
+def test_wide_band_row_engine_matches_bsw_align(dev, band, kw):
+    """The row forward's wide instances inside the engine: band 700 with
+    the device walk, band 2000 with the host walk."""
+    problems = tp.soak_problems(6, seed=3, max_len=1600 if band == 700
+                                else 400)
+    n0 = bsw_row.launches
+    got = BswEngine(dev, band=band, **kw).align_many(problems)
+    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, band))):
+        assert tp.same_alignment(g, w), k
+    assert bsw_row.launches > n0
 
 
 @pytest.mark.parametrize("fetch", ["lean", "edits"])

@@ -138,7 +138,11 @@ def test_cli_n50_matches_and_refusals(tmp_path, capsys):
     ours = capsys.readouterr().out
     assert jax_cli.main(["n50", mfa]) == 0
     assert ours == capsys.readouterr().out and ours
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    # merge --coordinator runs (test_torch_dist2proc.py); create's
+    # multi-process path needs the device join, which is not ported
+    with pytest.raises(NotImplementedError,
+                       match="multi-process create needs the device block "
+                             "join"):
         cli.main(["create", "--master-bam", ml, "--slave-bam", sl,
                   "--coordinator", "localhost:1234"])
     with pytest.raises(SystemExit):  # tpu is not a device of the port
@@ -152,6 +156,7 @@ def test_port_never_imports_jax():
     gam_ngs_tpu.*: the port keeps its own copies of the host layers."""
     files = sorted((ROOT / "gam_ngs_tpu_torch").rglob("*.py"))
     assert len(files) >= 50
+    assert ROOT / "gam_ngs_tpu_torch" / "parallel" / "distributed.py" in files
     for f in files + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             names = []
@@ -171,6 +176,7 @@ def test_port_imports_without_the_jax_package():
 import importlib, pathlib
 mods = [".".join(f.with_suffix("").parts).removesuffix(".__init__")
         for f in sorted(pathlib.Path("gam_ngs_tpu_torch").rglob("*.py"))]
+assert "gam_ngs_tpu_torch.parallel.distributed" in mods
 for name in mods:
     importlib.import_module(name)
 sys.path.insert(0, "tests")

@@ -129,6 +129,22 @@ def test_forward_row_matches_fill_matrix(band, seed):
     assert checked > 1000 and (band > 100 or lean > 1000)
 
 
+@pytest.mark.parametrize("band,seed,max_len", [(700, 4, 1000),
+                                               (2000, 5, 300)])
+def test_forward_row_wide_bands_match_fill_matrix(band, seed, max_len):
+    """The bands the CUDA kernel holds 2 and 4 lanes a thread for: a few
+    problems each (at band 700 some rows past the exact ones)."""
+    problems = tp.soak_problems(3, seed=seed, max_len=max_len)
+    if band == 700:  # 760 rows, begin_a >= 0: rows 701.. run lean
+        rng = np.random.default_rng(seed)
+        a = rng.integers(0, 4, size=760 + 2 * band).astype(np.uint8)
+        b = tp.mutate(rng, a[band:band + 760])
+        problems.append((a, band - 20, len(a) - 1, b, 0, len(b) - 1, False,
+                         True))
+    checked, lean = check_row_cells(problems, band)
+    assert checked > 1000 and (band > 1000 or lean > 10_000)
+
+
 def test_forward_row_band300_lean_rows_match_fill_matrix():
     """Band 300, 450-700 rows: mostly the lean body (rows > 300)."""
     checked, lean = check_row_cells(long_band300_problems(), 300)

@@ -383,17 +383,24 @@ def fork_bubble_corpus(tmp_path, unit: int = 6000):
                          {"m": "m", "s": "s"})
 
 
-def scale_corpus(genome_mb: float, tmp_path) -> dict:
-    """bench/e2e_scale.py::build_corpus (break_every=0): a random genome,
-    master contigs cut every 50 kbp, slave contigs cut every 50 kbp
-    shifted by 25 kbp, FR pairs (50 bp reads, insert 200) every 25 bp.
-    The merge of the two reconstructs the genome as one contig.  Returns
-    the genome and the input paths (ml, sl, mfa, sfa)."""
+def scale_corpus(genome_mb: float, tmp_path, break_every: int = 0) -> dict:
+    """bench/e2e_scale.py::build_corpus: a random genome, master contigs
+    cut every 50 kbp, slave contigs cut every 50 kbp shifted by 25 kbp,
+    FR pairs (50 bp reads, insert 200) every 25 bp.  With break_every=0
+    the block graph is one component and the merge of the two
+    reconstructs the genome as one contig; break_every=k snaps every k-th
+    slave cut onto a master cut, so the graph splits into ~#cuts/k
+    components (bench/dist_scale.py's corpus has k = 4).  Returns the
+    genome and the input paths (ml, sl, mfa, sfa)."""
     n = int(genome_mb * 1_000_000)
     cut, stride = 50_000, 25
     genome = random_genome(np.random.default_rng(2024), n)
     m_cuts = list(range(0, n + 1, cut))
     s_cuts = [0] + list(range(cut // 2, n, cut)) + [n]
+    if break_every:
+        for k in range(break_every, len(s_cuts) - 1, break_every):
+            s_cuts[k] = round(s_cuts[k] / cut) * cut
+        s_cuts = sorted(set(s_cuts))
 
     def ctg_of(cuts, p, q):
         c = bisect.bisect_right(cuts, p) - 1

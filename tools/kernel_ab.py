@@ -1,7 +1,8 @@
-"""Time this tree's anti-diagonal forward and walk kernels against another
-version's, on one CUDA GPU, in turns.
+"""Time this tree's anti-diagonal forward and walk kernels (or, with
+--row, its row-form forward) against another version's, on one CUDA GPU,
+in turns.
 
-    python3 tools/kernel_ab.py --base DIR [--reps 5] [--out FILE]
+    python3 tools/kernel_ab.py --base DIR [--row] [--reps 5] [--out FILE]
 
 DIR holds the other version's bsw_antidiag.cu and bsw_walk.cu (for
 example `git show <commit>:gam_ngs_tpu_torch/csrc/bsw_antidiag.cu` into
@@ -18,6 +19,11 @@ versions (both hold the same valid cells).  Beside each time it prints
 the kernel's bound on these inputs, chip_smoke.py's `bound` (int32
 operations from the recurrence, or bytes), and the multiple.  Prints
 one line a shape and kernel, and one JSON object last.
+
+--row: DIR holds the other version's bsw_row.cu (same C entry point);
+both row forwards run B=64 problems at band 150 in windows XW 1024 and
+4096, timed base, this, this, base, their outputs held equal bit for
+bit.
 
 Imports nothing of JAX and nothing of gam_ngs_tpu.
 """
@@ -136,6 +142,61 @@ class Shape:
         return summary
 
 
+def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
+    """This tree's bsw_row_forward against DIR's, in turns."""
+    from gam_ngs_tpu_torch.ops import bsw_row
+
+    this = bsw_row._kernel()
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, log = build([os.path.join(base_dir, "bsw_row.cu")], tmp)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[base] {line.strip()}")
+        base = lib.bsw_row_forward
+        base.argtypes, base.restype = this.argtypes, this.restype
+        res = {"card": card, "shapes": {}}
+        for xw in (1024, 4096):
+            sh = Shape(problems(xw))
+            ys = 2 * BAND + 1
+
+            def run(fn):
+                out = [torch.zeros(shape, dtype=torch.int32, device=DEV)
+                       for shape in ((sh.B, sh.xw // 16, ys), (sh.B, ys),
+                                     (sh.B, ys))]
+                err = fn(*(v.data_ptr() for v in (
+                    sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs)), sh.B,
+                    2 * sh.a.shape[1], sh.xw, BAND, MATCH_S, MISMATCH_S,
+                    NN_S, NX_S, GAP, FORCE_MAXGAP_LEN, bsw_row.NEG,
+                    *(v.data_ptr() for v in out), sh.stream)
+                if err:
+                    raise RuntimeError(f"bsw_row launch: CUDA error {err}")
+                return out
+
+            outs = {"base": run(base), "this": run(this)}
+            torch.cuda.synchronize()
+            if any(not torch.equal(x, y)
+                   for x, y in zip(outs["base"], outs["this"])):
+                raise AssertionError(f"XW {xw}: the row forwards disagree")
+            fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, BAND)
+            b_ms, b_by = chip_smoke.bound("bsw_row", fargs, None,
+                                          outs["this"], ops_rate)
+            n = int(((sh.xs + 15) // 16 * 16).max())
+            ms: dict = {}
+            for turn in ("base", "this", "this", "base"):
+                fn = base if turn == "base" else this
+                ms.setdefault(turn, []).append(
+                    launch_ms(lambda: run(fn), reps))
+            for turn, v in ms.items():
+                print(f"[ab] {card} | B={sh.B} band={BAND} XW={xw} "
+                      f"bsw_row_{turn}: ms {', '.join(f'{t:.4f}' for t in v)}"
+                      f"; {statistics.mean(v) * 1e6 / n:.1f} ns/row over {n} "
+                      f"rows; bound {b_ms:.6f} ms ({b_by}), "
+                      f"{statistics.mean(v) / b_ms:.1f}x it", flush=True)
+            res["shapes"][str(xw)] = {"ms": ms, "rows": n, "bound_ms": b_ms,
+                                      "bound_by": b_by}
+    return res
+
+
 def launch_ms(fn, reps: int) -> float:
     fn()  # warm-up
     times = []
@@ -153,6 +214,8 @@ def launch_ms(fn, reps: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", required=True)
+    ap.add_argument("--row", action="store_true",
+                    help="time the row-form forward (DIR/bsw_row.cu)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -165,6 +228,18 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     ops_rate = chip_smoke.int32_ops_per_s()
+    if args.row:
+        _build.library()
+        for line in _build.build_log.splitlines():
+            if "row_forward" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"[this] {line.strip()}")
+        line = json.dumps(row_ab(args.base, args.reps, card, ops_rate))
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(line + "\n")
+        print(line)
+        return 0
     this = entry_points(_build.library())
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
