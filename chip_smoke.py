@@ -1,6 +1,7 @@
 """Smoke run of gam_ngs_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--phases header,build,parity,small,full,dist,timing]
+    python3 chip_smoke.py [--phases header,build,parity,small,full,create,dist,
+                                    timing]
 
 Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
@@ -20,12 +21,18 @@ Phases (all by default; any failure raises and exits non-zero):
           in lean and edits fetch, and the host traceback, then
           kernel="row" at band 700 and the host traceback at band 2000
   small   gam create + gam merge through the port's CLI on the small
-          junction corpus and a fork + bubble corpus: the six outputs of
+          junction corpus and a fork + bubble corpus: create --device
+          cuda and --device auto (the device block join) write create
+          --device native's .blocks and both .isize files byte for
+          byte; the six outputs of
           merge --device cuda, of merge --device cuda under GAM_KERNEL=row
           and of run_merge with a traceback="host" engine, each
           byte-identical to merge --device oracle
   full    a 5 Mbp synthetic corpus (bench/e2e_scale.py's layout): gam
-          create --device native, then three merges on the card, each
+          create --device native, then --device cuda (the same .blocks
+          and .isize bytes; each engine's load_reads and find_blocks
+          seconds, the join and analysis launches read after setting
+          them to 0 just before it), then three merges on the card, each
           with exact genome reconstruction and the launch counts of its
           path read after setting them to 0 just before it: merge
           --device cuda (anti-diagonal forward + walk, and the edge
@@ -35,14 +42,30 @@ Phases (all by default; any failure raises and exits non-zero):
           bit, on the inputs the merges gave it (the anti-diagonal
           path's first chunk of every batch x window shape, the row
           path's 8-problem chunk); warm merges of the anti-diagonal path
-          (one, then the engine's stream pool against one stream, in
-          turns), one under torch.profiler (device time per kernel and
-          device busy time) of the anti-diagonal path, and one profiled
-          merge of the row path
-  dist    the multi-process merge: the junction corpus, the full
-          phase's 5 Mbp corpus (one graph) and the 5 Mbp genome split
-          into 25 graphs (every 4th slave cut on a master cut), each
-          merged by one child process and by two ranks of `python -m
+          (one; one under GAM_RESIDENT=0, whose row-payload edge count
+          must give the same six outputs, its partition seconds beside
+          the resident count's and its count timed on its own inputs;
+          then the engine's stream pool against one stream, in turns),
+          one under torch.profiler (device time per kernel and device
+          busy time) of the anti-diagonal path, and one profiled merge
+          of the row path
+  create  the device block join at real size: the 5 Mbp layout with a
+          pair every 2 bp (tests/torch_problems.py::scale_columns, ~5 M
+          rows a side, 50x coverage), find_blocks_device on the card
+          against the native scan column for column; the walls of both,
+          and the CUDA-event medians of join_device, analyze_device and
+          the insert-size moments (isize_stats_psum) beside their bounds
+          (the bytes each
+          reads and writes over the memory rate)
+  dist    the multi-process create and merge: two ranks of `python -m
+          gam_ngs_tpu_torch.cli create --coordinator 127.0.0.1:<port>
+          --device cuda` on the junction corpus and on the 5 Mbp genome
+          split into 25 graphs write host 0's .blocks byte for byte as the
+          one-process native create and .isize values within the
+          moment sums' rounding, every rank with slave rows launches the
+          join (each rank's wall and peak RSS); then the junction corpus,
+          the full phase's 5 Mbp corpus (one graph) and the split corpus,
+          each merged by one child process and by two ranks of `python -m
           gam_ngs_tpu_torch.cli merge --coordinator 127.0.0.1:<port>
           --device cuda` sharing the card: host 0's six outputs equal the
           one process's, the ranks' aligned cells sum to its count, a
@@ -88,6 +111,10 @@ import torch  # noqa: E402
 
 import torch_problems as tp  # noqa: E402
 from gam_ngs_tpu_torch import _build, cli  # noqa: E402
+from gam_ngs_tpu_torch.core.stats import isize_stats_psum  # noqa: E402
+from gam_ngs_tpu_torch.io import bamlist  # noqa: E402
+from gam_ngs_tpu_torch.io import isize as isize_io  # noqa: E402
+from gam_ngs_tpu_torch.native.loader import find_blocks_native  # noqa: E402
 from gam_ngs_tpu_torch.models.merge import (  # noqa: E402
     MergeOptions,
     run_merge,
@@ -97,6 +124,7 @@ from gam_ngs_tpu_torch.ops import (  # noqa: E402
     bsw_engine,
     bsw_row,
     bsw_walk,
+    device_join,
     region_score,
 )
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
@@ -115,7 +143,8 @@ from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
     walk_torch,
 )
 
-PHASES = ("header", "build", "parity", "small", "full", "dist", "timing")
+PHASES = ("header", "build", "parity", "small", "full", "create", "dist",
+          "timing")
 OUTPUTS = (".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
            ".noblocks.AF.fasta", ".notmerged.fasta")
 DEV = torch.device("cuda")
@@ -331,6 +360,44 @@ def merge_path(path, ml, sl, mfa, sfa, blocks, out) -> None:
             os.environ["GAM_KERNEL"] = old
 
 
+def create_argv(ml, sl, out, device):
+    return ["create", "--master-bam", ml, "--slave-bam", sl,
+            "--min-block-size", "10", "--output", out, "--device", device]
+
+
+def create_files(ml, sl, out) -> list[bytes]:
+    return [pathlib.Path(p).read_bytes()
+            for p in (out + ".blocks", ml + ".isize", sl + ".isize")]
+
+
+def create_matches_native(d, ml, sl, out, device, label) -> dict:
+    """gam create --device native into d/<out>, then --device <device>
+    (the device join) into d/<device>, through the CLI in this process;
+    the .blocks and both .isize files must be byte-identical (the native
+    run's are left in place).  The join and analysis launch counts are
+    set to 0 just before the device create and read just after it.
+    Returns {engine: (wall s, .metrics.json)} and the launches."""
+    runs = {}
+    for engine, prefix in (("native", out), (device, device)):
+        if engine == device:
+            device_join.launches.update(join=0, analyze=0)
+        t0 = time.time()
+        run_cli(create_argv(ml, sl, str(d / prefix), engine))
+        torch.cuda.synchronize()
+        runs[engine] = (time.time() - t0, json.load(
+            open(d / f"{prefix}.metrics.json")),
+            create_files(ml, sl, str(d / prefix)))
+    launches = dict(device_join.launches)
+    if runs[device][2] != runs["native"][2]:
+        raise AssertionError(f"{label}: create --device {device} wrote "
+                             f"other .blocks/.isize bytes than native")
+    if launches != {"join": 1, "analyze": 1}:
+        raise AssertionError(f"{label}: create --device {device}: join / "
+                             f"analysis launches {launches}")
+    return {"runs": {k: v[:2] for k, v in runs.items()},
+            "launches": launches}
+
+
 def phase_small(tmp):
     for name in ("junction", "fork_bubble"):
         d = pathlib.Path(tmp) / name
@@ -340,8 +407,8 @@ def phase_small(tmp):
         else:
             genome = None  # the fork's slave misjoin reconstructs no genome
             ml, sl, mfa, sfa = tp.fork_bubble_corpus(d)
-        run_cli(["create", "--master-bam", ml, "--slave-bam", sl,
-                 "--min-block-size", "10", "--output", str(d / "out")])
+        for device in ("cuda", "auto"):
+            create_matches_native(d, ml, sl, "out", device, name)
         blocks = str(d / "out.blocks")
         run_cli(merge_argv(ml, sl, mfa, sfa, blocks, str(d / "oracle"),
                            "oracle"))
@@ -359,8 +426,10 @@ def phase_small(tmp):
                 raise AssertionError(f"{name}: not one fork and one bubble")
         elif tp.read_fasta_seqs(str(d / "row.gam.fasta")) != [genome]:
             raise AssertionError(f"{name}: genome not reconstructed")
-        log(f"[small] {name}: six outputs byte-identical to the oracle's "
-            f"for merge --device cuda, GAM_KERNEL=row and the host "
+        log(f"[small] {name}: create --device cuda and --device auto = "
+            f"--device native (.blocks, both .isize), each launching the "
+            f"join and the analysis; six outputs byte-identical to the "
+            f"oracle's for merge --device cuda, GAM_KERNEL=row and the host "
             f"traceback" + (", genome reconstructed" if genome else
                             ", one fork and one bubble graph"))
 
@@ -446,11 +515,14 @@ def phase_full(tmp, res):
     t0 = time.time()
     c = tp.scale_corpus(5.0, d)
     log(f"[full] corpus 5.0 Mbp built in {time.time() - t0:.1f} s")
-    t0 = time.time()
-    run_cli(["create", "--master-bam", c["ml"], "--slave-bam", c["sl"],
-             "--min-block-size", "10", "--output", f"{d}/out", "--device",
-             "native"])
-    log(f"[full] create {time.time() - t0:.2f} s")
+    cr = create_matches_native(d, c["ml"], c["sl"], "out", "cuda", "5 Mbp")
+    for engine, (wall, m) in cr["runs"].items():
+        log(f"[full] create --device {engine}: wall {wall:.4f} s, "
+            f"load_reads {m['phases']['load_reads']:.4f} s, find_blocks "
+            f"{m['phases']['find_blocks']:.4f} s, blocks "
+            f"{m['counters']['blocks']}")
+    log(f"[full] create --device cuda: .blocks and both .isize files "
+        f"byte-identical to --device native's; launches {cr['launches']}")
     blocks = f"{d}/out.blocks"
     res["full_corpus"] = (d, c)
 
@@ -536,6 +608,7 @@ def phase_full(tmp, res):
         raise AssertionError("a warm merge wrote another .gam.fasta")
     log(f"[full] warm merge (antidiag): wall {wall:.4f} s, phases (s) "
         f"{json.dumps(mr['phases'], sort_keys=True)}")
+    payload_merge(d, merge, mr)
     # the chunks of a round on the engine's stream pool against one
     # stream, in turns (pool, 1, 1, pool, three times); medians
     pool = BswEngine.STREAMS
@@ -573,6 +646,139 @@ def phase_full(tmp, res):
                 f"{name[:80]}")
 
 
+def payload_merge(d, merge, m_res) -> None:
+    """One warm merge under GAM_RESIDENT=0: the partition's edge count
+    ships row copies (ops/region_score.py count_payload) and must give
+    the resident merge's six outputs; its partition seconds beside the
+    resident merge's, and count_payload timed on its first chunk."""
+    kept = {}
+    plain = region_score.count_payload
+
+    def keep(rows, jobs_t):
+        kept.setdefault("args", (rows, jobs_t))
+        kept["calls"] = kept.get("calls", 0) + 1
+        return plain(rows, jobs_t)
+
+    os.environ["GAM_RESIDENT"] = "0"
+    region_score.count_payload = keep
+    try:
+        wall, mp = merge("antidiag", "payload")
+    finally:
+        region_score.count_payload = plain
+        del os.environ["GAM_RESIDENT"]
+    for ext in OUTPUTS:
+        if (d / f"payload{ext}").read_bytes() != (d / f"warm{ext}"
+                                                  ).read_bytes():
+            raise AssertionError(f"GAM_RESIDENT=0: payload{ext} != the "
+                                 f"resident merge's")
+    if not kept.get("calls"):
+        raise AssertionError("GAM_RESIDENT=0 ran no payload count")
+    rows, jobs_t = kept["args"]
+    ms, out = cuda_ms(lambda: plain(rows, jobs_t))
+    want = plain({k: v.cpu() for k, v in rows.items()}, jobs_t.cpu())
+    if not torch.equal(out.cpu(), want):
+        raise AssertionError("count_payload on the card != on the CPU")
+    n_bytes = nbytes(*rows.values(), jobs_t, out)
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[full] warm merge under GAM_RESIDENT=0: six outputs "
+        f"byte-identical to the resident merge's; wall {wall:.4f} s, "
+        f"partition {mp['phases']['partition']:.4f} s (resident "
+        f"{m_res['phases']['partition']:.4f} s), "
+        f"{mp['counters']['partition_bytes_wire']} payload bytes up, "
+        f"{kept['calls']} count_payload call(s)")
+    log(f"[full] count_payload, first chunk ({rows['pos'].shape[0]} rows, "
+        f"{jobs_t.shape[1]} jobs): {ms:.4f} ms (CUDA events, median of 5), "
+        f"bound {b_ms:.6g} ms (bytes, {n_bytes} B), {ms / b_ms:.1f}x it")
+
+
+def phase_create(genome_mb: float = 5.0):
+    """find_blocks_device on the card at ~5 M rows a side (the 5 Mbp
+    layout, a pair every 2 bp) against the native scan, column for
+    column; walls of both; CUDA-event medians of join_device,
+    analyze_device and the moments of 2.5 M inserts beside their
+    bounds."""
+    t0 = time.time()
+    m_cols, s_cols = tp.scale_columns(genome_mb, 2)
+    nm, ns = len(m_cols[0]), len(s_cols[0])
+    log(f"[create] columns built in {time.time() - t0:.2f} s: {nm} master "
+        f"rows, {ns} slave rows ({genome_mb} Mbp genome, a 50 bp read pair "
+        f"every 2 bp, 50x coverage)")
+    t0 = time.time()
+    want = find_blocks_native(m_cols, s_cols, 10)
+    t_nat = time.time() - t0
+    device_join.launches.update(join=0, analyze=0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stats: dict = {}
+    got = device_join.find_blocks_device(m_cols, s_cols, 10, stats=stats,
+                                         device=DEV)
+    torch.cuda.synchronize()
+    t_dev = time.time() - t0
+    launches = dict(device_join.launches)
+    for k in want:
+        if not np.array_equal(np.asarray(got[k], np.int64),
+                              np.asarray(want[k], np.int64)):
+            raise AssertionError(f"[create] column {k}: the device join "
+                                 f"!= the native scan")
+    if launches != {"join": 1, "analyze": 1}:
+        raise AssertionError(f"[create] launches {launches}")
+    log(f"[create] find_blocks_device on {DEV} = find_blocks_native, "
+        f"column for column: {len(want['num_reads'])} blocks from "
+        f"{stats['matched_reads']} matched reads ({stats['runs']} runs, "
+        f"{stats['groups']} groups, {stats['simple_groups']} simple, "
+        f"{stats['residual_reads']} residual reads); wall: device path "
+        f"{t_dev:.4f} s, native scan {t_nat:.4f} s; launches {launches}")
+
+    def up(a, b, dtype):
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(a, dtype), np.asarray(b, dtype)])).to(DEV)
+
+    first = up(m_cols[2], s_cols[2], np.uint8)
+    h2 = up(m_cols[1], s_cols[1], np.uint64).view(torch.int64)
+    h1 = up(m_cols[0], s_cols[0], np.uint64).view(torch.int64)
+    ms_join, midx = cuda_ms(lambda: device_join.join_device(first, h2, h1,
+                                                            nm))
+    midx = midx.cpu().numpy()
+    sel = np.nonzero(midx >= 0)[0]
+    mi = midx[sel]
+    cols = torch.from_numpy(np.stack([
+        s_cols[3][sel], s_cols[4][sel], s_cols[5][sel] - 1, m_cols[3][mi],
+        m_cols[4][mi], m_cols[5][mi] - 1]).astype(np.int32)).to(DEV)
+    ms_an, an_out = cuda_ms(lambda: device_join.analyze_device(cols))
+    # the insert-size moments that distributed_library_stats reduces on
+    # each rank's card (core/stats.py::isize_stats_psum): one insert a
+    # pair.  The sums of these integers are exact in float64, so mean
+    # and std must equal the same formula on numpy's sums.
+    x = (200 + (np.arange(ns // 2) % 7) - 3).astype(np.float64)
+    ins = torch.from_numpy(x).to(DEV)
+    ms_mom, mom = cuda_ms(lambda: isize_stats_psum(ins))
+    n, s, ss = float(len(x)), float(x.sum()), float((x * x).sum())
+    mean = s / n
+    want_mom = [mean, float(np.sqrt(max(ss - n * mean * mean, 0.0) /
+                                    (n + 1))), n]
+    if [float(v) for v in mom] != want_mom:
+        raise AssertionError(f"[create] isize_stats_psum on the card "
+                             f"{[float(v) for v in mom]} != {want_mom}")
+    # the running max both programs scan with: torch's cummax of one
+    # long row against the two-level device_join.cummax, same values
+    packed = torch.randint(-(2 ** 62), 2 ** 62, (nm + ns,), device=DEV)
+    ms_one, one = cuda_ms(lambda: torch.cummax(packed, 0).values)
+    ms_two, two = cuda_ms(lambda: device_join.cummax(packed))
+    if not torch.equal(one, two):
+        raise AssertionError("[create] two-level cummax != torch.cummax")
+    log(f"[create] running max of {nm + ns} int64: torch.cummax "
+        f"{ms_one:.4f} ms, two-level device_join.cummax {ms_two:.4f} ms "
+        f"(CUDA events, median of 5)")
+    for name, ms, n_bytes in (
+            ("join_device", ms_join, nbytes(first, h2, h1) + ns * 8),
+            ("analyze_device", ms_an, nbytes(cols, *an_out)),
+            ("isize_stats_psum", ms_mom, nbytes(ins, *mom))):
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[create] {name}: {ms:.4f} ms (CUDA events, median of 5), "
+            f"bound {b_ms:.6g} ms (bytes: {n_bytes} B over "
+            f"{HBM_BYTES_PER_S:.3g} B/s), {ms / b_ms:.1f}x it")
+
+
 def resident_mib(pid: int) -> int:
     """A process's peak resident size in MiB (VmHWM of /proc/<pid>/status,
     or its current VmRSS where the kernel reports no peak); 0 once it has
@@ -592,16 +798,24 @@ def mib(v: int) -> str:
 
 def merge_processes(d, c, blocks, prefix, nproc, timeout_s=300):
     """One merge through `python -m gam_ngs_tpu_torch.cli merge --device
-    cuda` in nproc child processes (nproc > 1: a gloo group on 127.0.0.1,
-    every rank on this card).  Returns (wall s, each rank's log, each
-    rank's peak RSS in MiB).  The peak is resident_mib's, read every 20 ms
-    while the child runs: the CLI's own MAX Memory line (getrusage) counts
-    this process's resident size too, which a child inherits across fork
-    and exec.  A rank that exits non-zero or outlives timeout_s
-    fails the phase; every child is killed before this returns."""
-    argv = [sys.executable, "-m", "gam_ngs_tpu_torch.cli", *merge_argv(
+    cuda` in nproc child processes (cli_processes)."""
+    wall, logs, hwm, _walls = cli_processes(d, merge_argv(
         c["ml"], c["sl"], c["mfa"], c["sfa"], blocks, f"{d}/{prefix}",
-        "cuda")]
+        "cuda"), prefix, nproc, timeout_s)
+    return wall, logs, hwm
+
+
+def cli_processes(d, cli_argv, prefix, nproc, timeout_s=300):
+    """One command of `python -m gam_ngs_tpu_torch.cli` in nproc child
+    processes (nproc > 1: a gloo group on 127.0.0.1, every rank on this
+    card).  Returns (wall s, each rank's log, each rank's peak RSS in
+    MiB, each rank's wall s).  The peak is resident_mib's, read every
+    20 ms while the child runs: the CLI's own MAX Memory line (getrusage)
+    counts this process's resident size too, which a child inherits
+    across fork and exec.  A rank that exits non-zero or outlives
+    timeout_s fails the phase; every child is killed before this
+    returns."""
+    argv = [sys.executable, "-m", "gam_ngs_tpu_torch.cli", *cli_argv]
     if nproc > 1:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
@@ -610,6 +824,7 @@ def merge_processes(d, c, blocks, prefix, nproc, timeout_s=300):
     env = dict(os.environ, PYTHONPATH=ROOT, GAM_BARRIER_TIMEOUT="240")
     procs = []
     hwm = [0] * nproc
+    walls = [0.0] * nproc
     t0 = time.time()
     try:
         for k in range(nproc):
@@ -620,10 +835,12 @@ def merge_processes(d, c, blocks, prefix, nproc, timeout_s=300):
                 logf))
         while any(p.poll() is None for p, _f in procs):
             if time.time() - t0 > timeout_s:
-                raise TimeoutError(f"{prefix}: the merge outlived "
+                raise TimeoutError(f"{prefix}: {cli_argv[0]} outlived "
                                    f"{timeout_s} s")
             for k, (p, _f) in enumerate(procs):
-                hwm[k] = max(hwm[k], resident_mib(p.pid))
+                if p.poll() is None:
+                    hwm[k] = max(hwm[k], resident_mib(p.pid))
+                    walls[k] = time.time() - t0
             time.sleep(0.02)
         wall = time.time() - t0
     finally:
@@ -637,7 +854,60 @@ def merge_processes(d, c, blocks, prefix, nproc, timeout_s=300):
         if p.returncode != 0:
             raise RuntimeError(f"{prefix} rank {k} exited {p.returncode}:\n"
                                + logs[k][-3000:])
-    return wall, logs, hwm
+    return wall, logs, hwm, walls
+
+
+def isize_values(lst: str) -> list[float]:
+    """The mean, std and coverage numbers of <lst>.isize."""
+    names = bamlist.load_bam_file_names(lst)[0]
+    return [v for vals in isize_io.read_isize(lst + ".isize", names)
+            for v in vals]
+
+
+def dist_create(d, c, name) -> str:
+    """Two ranks of `create --coordinator --device cuda` on the card:
+    host 0's .blocks byte-identical to the one-process native create's
+    (d/out), the .isize values within the moment sums' rounding (mean
+    rtol 1e-9, std 1e-6, coverage 1e-12, tests/test_create_dist.py), and
+    every rank whose shard holds slave rows launched the join and the
+    analysis (on the split corpus, both ranks).  Its .isize files stay
+    in place for the merges that follow.  Returns host 0's .blocks
+    path."""
+    lists = (c["ml"], c["sl"])
+    want = {lst: isize_values(lst) for lst in lists}
+    wall, logs, hwm, walls = cli_processes(
+        d, create_argv(c["ml"], c["sl"], f"{d}/dist_create", "cuda"),
+        "dist_create", 2)
+    if (d / "dist_create.blocks").read_bytes() != \
+            (d / "out.blocks").read_bytes():
+        raise AssertionError(f"{name}: two-process create .blocks != the "
+                             f"native create's")
+    for lst in lists:
+        got = isize_values(lst)
+        for k, tol in enumerate((1e-9, 1e-6, 1e-12)):
+            g, w = got[k::3], want[lst][k::3]
+            if not np.allclose(g, w, rtol=tol, atol=0):
+                raise AssertionError(f"{name}: {lst}.isize {g} vs native "
+                                     f"{w} (rtol {tol})")
+    for k, log_k in enumerate(logs):
+        rows = re.search(rf"\[create\] host {k}: (\d+) slave rows", log_k)
+        launch = re.search(rf"\[create\] host {k}: device join launches = "
+                           rf"(\{{.*?\}})", log_k)
+        if not rows or not launch:
+            raise AssertionError(f"{name} create rank {k}:\n"
+                                 + log_k[-3000:])
+        n_rows = int(rows.group(1))
+        launches = json.loads(launch.group(1))
+        ran = launches["join"] >= 1 and launches["analyze"] >= 1
+        if ran != (n_rows > 0) or (name == "scale5_split4" and not n_rows):
+            raise AssertionError(f"{name} create rank {k}: {n_rows} slave "
+                                 f"rows, launches {launches}")
+        log(f"[dist] {name} create rank {k}: {n_rows} slave rows, "
+            f"launches {launches}, wall {walls[k]:.4f} s, peak RSS "
+            f"{mib(hwm[k])}")
+    log(f"[dist] {name}: two-process create: host 0's .blocks = the "
+        f"native create's, .isize within rounding; wall {wall:.4f} s")
+    return str(d / "dist_create.blocks")
 
 
 def rank_numbers(log: str, k: int) -> dict:
@@ -659,15 +929,20 @@ def rank_numbers(log: str, k: int) -> dict:
 
 
 def phase_dist(tmp, res):
-    """The multi-process merge: the junction corpus (fails fast), the
-    full phase's 5 Mbp corpus (one graph: rank 1 has nothing to align)
-    and the same 5 Mbp genome with every 4th slave cut on a master cut
-    (bench/dist_scale.py's corpus: 25 graphs), each merged by one child
-    process and by two ranks of merge --coordinator on this card.  Host
-    0's six outputs must equal the one-process run's, the ranks' aligned
-    cells must sum to the one-process run's, every rank that aligned must
-    have launched the forward and the walk, and on the split corpus both
-    ranks must have aligned."""
+    """The multi-process create and merge: the junction corpus (fails
+    fast), the full phase's 5 Mbp corpus (one graph: rank 1 has nothing
+    to align) and the same 5 Mbp genome with every 4th slave cut on a
+    master cut (bench/dist_scale.py's corpus: 25 graphs).  On the junction
+    and split corpora two ranks of create --coordinator run first
+    (dist_create) and the merges read host 0's blocks.  Each corpus is
+    merged by one child process and by two ranks of merge --coordinator
+    on this card.  Host 0's six outputs must equal the one-process run's,
+    on the junction and split corpora those outputs must also equal a
+    one-process merge of the native create's .blocks and .isize (the
+    whole one-process pipeline), the ranks' aligned cells must sum to
+    the one-process run's, every
+    rank that aligned must have launched the forward and the walk, and on
+    the split corpus both ranks must have aligned."""
     for name in ("junction", "scale5", "scale5_split4"):
         if name == "scale5" and "full_corpus" in res:
             d, c = res["full_corpus"]
@@ -681,10 +956,13 @@ def phase_dist(tmp, res):
             else:
                 c = tp.scale_corpus(5.0, d, break_every=4 * (
                     name == "scale5_split4"))
-            run_cli(["create", "--master-bam", c["ml"], "--slave-bam",
-                     c["sl"], "--min-block-size", "10", "--output",
-                     f"{d}/out", "--device", "native"])
+            run_cli(create_argv(c["ml"], c["sl"], f"{d}/out", "native"))
         blocks = f"{d}/out.blocks"
+        if name != "scale5":
+            # the one-process pipeline's merge (native create's .blocks
+            # and .isize), then the merges read the two-rank create's
+            merge_processes(d, c, blocks, "native1", 1)
+            blocks = dist_create(d, c, name)
         wall1, _logs, hwm1 = merge_processes(d, c, blocks, "dist1", 1)
         m1 = json.load(open(f"{d}/dist1.metrics.json"))
         wall2, logs, hwm2 = merge_processes(d, c, blocks, "dist2", 2)
@@ -693,6 +971,11 @@ def phase_dist(tmp, res):
                     (d / f"dist1{ext}").read_bytes():
                 raise AssertionError(f"{name}: two-process {ext} differs "
                                      f"from the one-process run's")
+            if name != "scale5" and (d / f"dist1{ext}").read_bytes() != \
+                    (d / f"native1{ext}").read_bytes():
+                raise AssertionError(f"{name}: merge {ext} from the "
+                                     f"two-rank create differs from the "
+                                     f"one-process pipeline's")
         merged = "".join(tp.read_fasta_seqs(f"{d}/dist2.gam.fasta"))
         if name != "scale5_split4" and c["genome"] not in merged:
             raise AssertionError(f"{name}: genome not reconstructed")
@@ -715,8 +998,10 @@ def phase_dist(tmp, res):
                                  f"one-process run {cells1}")
         cells = " + ".join(str(r["cells"]) for r in ranks)
         aligns = ", ".join(f"{r['align_s']:.4f}" for r in ranks)
+        same = ("" if name == "scale5" else " and to the merge of the "
+                "one-process native create's .blocks and .isize")
         log(f"[dist] {name}: {m1['counters']['graphs']} graphs; six outputs "
-            f"of 2 processes byte-identical to 1 process; aligned cells "
+            f"of 2 processes byte-identical to 1 process{same}; aligned cells "
             f"{cells} = {cells1}; merge wall "
             f"1 process {wall1:.4f} s (align {m1['phases']['align']:.4f} s, "
             f"peak RSS {mib(hwm1[0])}), 2 processes {wall2:.4f} s (align "
@@ -916,6 +1201,8 @@ def main() -> int:
             phase_small(tmp)
         if "full" in phases:
             phase_full(tmp, res)
+        if "create" in phases:
+            phase_create()
         if "dist" in phases:
             phase_dist(tmp, res)
         if "timing" in phases:

@@ -6,16 +6,19 @@ The flags are those of gam_ngs_tpu/cli.py (the reference binaries'
 flags).  merge --device picks the banded-SW engine's torch device:
 `auto` and `cuda` need a CUDA GPU and fail without one, `cpu` runs the
 kernels' plain PyTorch versions, `oracle` the exact host aligner.
-`cuda:N` names one GPU.  create --device picks the block scan:
-`native` (C++), `oracle` (exact Python) or `auto` (native when
-available).
+`cuda:N` names one GPU.  create --device picks the block
+construction: `native` (C++ scan), `oracle` (exact Python scan), the
+device join on a torch device (`cuda`, `cuda:N`, or `cpu` for its
+torch ops on the CPU), or `auto` (the device join on cuda, which fails
+without a GPU, as merge's auto does).
 
-merge --coordinator host:port --num-processes N --process-id k runs one
-of N processes of a multi-process merge over a torch.distributed gloo
-group: every process runs the same command, each aligns its share of
-the graph partitions (on cuda:(k mod the GPUs it sees) under auto and
-cuda), and host 0 writes the outputs.  create runs in one process only:
-multi-process create needs the device block join, which is not ported.
+--coordinator host:port --num-processes N --process-id k runs one of N
+processes over a torch.distributed gloo group; every process runs the
+same command and host 0 writes the outputs.  merge: each process aligns
+its share of the graph partitions.  create: each process runs the
+device join over its share of the slave contigs (the sharded join is
+create's only multi-process path, whatever --device names).  Under
+auto and cuda process k takes cuda:(k mod the GPUs it sees).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ def _add_dist(p):
     g.add_argument("--coordinator", default="",
                    help="coordinator address host:port; enables multi-"
                         "process mode (every process runs the same "
-                        "command, host 0 writes the outputs; merge only)")
+                        "command, host 0 writes the outputs)")
     g.add_argument("--num-processes", type=int, default=None)
     g.add_argument("--process-id", type=int, default=None)
 
@@ -50,11 +53,11 @@ def _add_create(sub):
                    help="process all reads as if uniquely mapped")
     p.add_argument("--output", default="out", help="output-file's prefix")
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--device", choices=["auto", "native", "oracle"],
-                   default="auto",
+    p.add_argument("--device", type=_create_device, default="auto",
                    help="block-construction engine: 'native' = C++ scan, "
-                        "'oracle' = exact Python scan, 'auto' = native "
-                        "if built else oracle")
+                        "'oracle' = exact Python scan, cuda / cuda:N / "
+                        "cpu = the device join on that torch device, "
+                        "'auto' = the device join on cuda")
     _add_dist(p)
 
 
@@ -64,6 +67,17 @@ def _merge_device(name: str) -> str:
         return name
     raise argparse.ArgumentTypeError(
         f"invalid device {name!r} (auto, cuda, cuda:N, cpu, oracle)")
+
+
+def _create_device(name: str) -> str:
+    if name == "native":
+        return name
+    try:
+        return _merge_device(name)
+    except argparse.ArgumentTypeError:
+        raise argparse.ArgumentTypeError(
+            f"invalid device {name!r} (auto, native, oracle, cuda, cuda:N, "
+            f"cpu)") from None
 
 
 def _add_merge(sub):
@@ -107,40 +121,46 @@ def main(argv=None) -> int:
     pidx.add_argument("bams", nargs="+", help="BAM files or bam-list files")
     args = ap.parse_args(argv)
 
-    if getattr(args, "coordinator", "") and args.cmd == "create":
-        raise NotImplementedError(
-            "create --coordinator: multi-process create needs the device "
-            "block join (the JAX package shards it when nproc > 1), which "
-            "gam_ngs_tpu_torch has not ported; run create in one process")
-
     from .utils.misc import max_rss_line
+
+    if args.cmd in ("create", "merge") and args.coordinator:
+        from .parallel import distributed
+
+        pid, n = distributed.init_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+        print(f"[main] process {pid}/{n} joined {args.coordinator}",
+              flush=True)
 
     if args.cmd == "create":
         from .models.create import CreateOptions, run_create
 
         if args.min_block_size < 1:
             print("WARNING: min-block-size is less than 1", file=sys.stderr)
-        run_create(CreateOptions(
-            master_bam_file=args.master_bam,
-            slave_bam_file=args.slave_bam,
-            min_block_size=args.min_block_size,
-            no_multiplicity_filter=args.no_mult_filter,
-            output_file_prefix=args.output,
-            debug=args.debug,
-            engine=args.device,
-        ))
+        try:
+            engine, device = args.device, None
+            if engine not in ("auto", "native", "oracle"):
+                from .device import resolve_device
+
+                engine, device = "device", resolve_device(args.device)
+            run_create(CreateOptions(
+                master_bam_file=args.master_bam,
+                slave_bam_file=args.slave_bam,
+                min_block_size=args.min_block_size,
+                no_multiplicity_filter=args.no_mult_filter,
+                output_file_prefix=args.output,
+                debug=args.debug,
+                engine=engine,
+                device=device,
+            ))
+        finally:
+            if args.coordinator:
+                distributed.shutdown()
         print(max_rss_line("[gam-create]"))  # src/gam-create.cc:64
         return 0
 
     if args.cmd == "merge":
         from .models.merge import MergeOptions, run_merge
-        from .parallel import distributed
 
-        if args.coordinator:
-            pid, n = distributed.init_distributed(
-                args.coordinator, args.num_processes, args.process_id)
-            print(f"[main] process {pid}/{n} joined {args.coordinator}",
-                  flush=True)
         try:
             engine = None
             if args.device != "oracle":

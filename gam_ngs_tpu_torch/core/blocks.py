@@ -15,12 +15,14 @@ Block.cc:49) and instead enqueue an EMPTY active block that absorbs the
 next matched read unconditionally.
 
 The Python scan here is the behavioral oracle; the native C++ scan
-(native/gamio.cc) implements the same loop for throughput.
+(native/gamio.cc) implements the same loop for throughput, and
+ops/device_join.py provides the sort/merge-join device formulation.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..io.bam import FPAIRED, FREAD1, FREVERSE
 from ..io.blocks_io import BlockTable
@@ -92,6 +94,20 @@ def find_blocks_fast(mb_master: MultiBam, mb_slave: MultiBam,
     cols = find_blocks_native(m_cols, s_cols, min_block_size)
     if cols is None:
         return None
+    return block_table_from_columns(cols)
+
+
+def find_blocks_device_path(mb_master: MultiBam, mb_slave: MultiBam,
+                            min_block_size: int, no_mult_filter: bool,
+                            device: torch.device) -> BlockTable:
+    """Device block construction: sort / merge-join / segment scan as
+    torch ops on `device` (ops/device_join.py) over the columnar
+    streams."""
+    from ..ops.device_join import find_blocks_device
+
+    m_cols = stream_columns(mb_master, no_mult_filter)
+    s_cols = stream_columns(mb_slave, no_mult_filter)
+    cols = find_blocks_device(m_cols, s_cols, min_block_size, device=device)
     return block_table_from_columns(cols)
 
 

@@ -16,12 +16,15 @@ Replicates MultiBamReader's streaming Welford update bit-for-bit
   * coverage = sum(end_pos - pos over good-quality reads) / assembly size.
 
 `welford_isize_stats` performs the sequential (order-dependent) update in
-float64 exactly as C++ does.
+float64 exactly as C++ does; `isize_stats_psum` is the device version
+built from moments, which the multi-process create sums over its
+processes (mathematically equal, bit-different).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..io.bam import (
     AlignmentTable,
@@ -108,3 +111,28 @@ def library_stats(table: AlignmentTable, asm_size: int, min_insert: int,
     coverage = reads_len / float(asm_size) if asm_size != 0 else 0.0
     return mean, std, coverage
 
+
+def isize_stats_psum(inserts: torch.Tensor, allgather=None):
+    """Moment-based mean/std on the insert tensor's device, summed over
+    the processes when `allgather` is given.
+
+    The count, sum and sum of squares reduce as float64 on the device;
+    `allgather` (parallel/distributed.py::allgather_obj, the sharded
+    create's collective) collects every process's three numbers in
+    process order and they are summed on the host.  Matches the Welford
+    result up to float rounding; the one-process .isize output uses the
+    host path.  Returns (mean, std, n) as float64 scalar tensors.
+    """
+    x = inserts.to(torch.float64)
+    mom = torch.stack([torch.tensor(float(x.shape[0]), dtype=torch.float64,
+                                    device=x.device), x.sum(), (x * x).sum()])
+    if allgather is not None:
+        mom = torch.tensor([sum(v) for v in zip(*allgather(mom.tolist()))],
+                           dtype=torch.float64)
+    n, s, ss = mom.unbind(0)
+    mean = s / torch.clamp(n, min=1)
+    # reference quirk: count starts at 1, so the sequential version
+    # divides M2 by (n_samples + 1)
+    var = torch.clamp(ss - n * mean * mean, min=0.0) / torch.clamp(n + 1,
+                                                                   min=1)
+    return mean, torch.sqrt(var), n

@@ -1,22 +1,27 @@
 """Partition edge count (junction evidence) on a torch device.
 
-The counterpart of gam_ngs_tpu/ops/region_score.py's resident path
-(_count_jobs_resident with _resident_kernel_raw): every (edge, library)
-job is a row range of a library's coordinate-sorted alignment columns;
-the union of the touched rows is uploaded once per call, each chunk
-ships only its jobs' ranges and scalars, and the device finds each row's
-job (searchsorted), gathers its columns, applies the c1..c4 read
-classes of getLibRegionScore (CompactAssemblyGraph.cc:361-530) and sums
-them per job with one cumsum.  Plain torch ops: they run on whatever
-device the columns were uploaded to.
+The counterpart of gam_ngs_tpu/ops/region_score.py's two paths.  Both
+apply the c1..c4 read classes of getLibRegionScore
+(CompactAssemblyGraph.cc:361-530) to every row of every (edge, library)
+job and sum them per job with one cumsum, as plain torch ops on the
+device the columns were uploaded to:
+
+  * resident range jobs (the default; _count_jobs_resident with
+    _resident_kernel_raw): every job is a row range of a library's
+    coordinate-sorted alignment columns; the union of the touched rows
+    is uploaded once per call, each chunk ships only its jobs' ranges
+    and scalars, and the device finds each row's job (searchsorted) and
+    gathers its columns;
+  * row-payload jobs (GAM_RESIDENT=0; _count_kernel): every job carries
+    copies of its rows, each chunk uploads them at their wire widths
+    (flag and NH uint16, XT and good-quality uint8) with the jobs'
+    scalars, and the device widens them.
 
 Chunks keep the reference's ROW_CAP / OV_CAP bounds; a job whose summed
 read lengths exceed OV_CAP is counted exactly on the host
 (_count_job_host).  The sums run in int64 (torch.cumsum's type for
-integer input); under the caps int32 would be exact as well.
-
-Row-payload jobs (GAM_RESIDENT=0) and the mesh-sharded count are not
-ported yet and raise NotImplementedError.
+integer input); under the caps int32 would be exact as well.  The
+mesh-sharded count is not ported (one GPU a process).
 """
 
 from __future__ import annotations
@@ -38,6 +43,11 @@ XT_U = ord("U")
 WIRE = {"bytes_up": 0, "dispatches": 0, "arena_bytes_up": 0}
 
 _SCA_FIELDS = ("s1", "s2", "t", "max_insert", "seq_len", "no_mult")
+# the row-payload jobs' row columns and their wire widths (int32 else)
+_ROW_FIELDS = ("pos", "end_pos", "flag", "nh", "xt", "ref_id",
+               "mate_ref", "mate_pos", "goodq")
+_ROW_DTYPES = {"flag": np.uint16, "nh": np.uint16, "xt": np.uint8,
+               "goodq": np.uint8}
 
 # Row cap per dispatch: bounds the int32 cumsum (cap * max-overlap
 # 2^21 * ~2^9 < 2^31) and keeps every compiled shape small.
@@ -165,6 +175,36 @@ def _count_job_host(job: dict) -> tuple[int, int, int]:
     return good, exp, num
 
 
+def _job_sums(starts, ends, in_job, pos, end_pos, mate_pos, paired, fwd,
+              munmap, mrev, uniq, goodq, diff_ref, s1j, s2j, tj, mij, slj
+              ) -> torch.Tensor:
+    """The c1..c4 read classes of every row (int64 columns; s1j..slj the
+    scalars of each row's job), summed over each job's contiguous run of
+    rows [starts, ends).  Returns (3, J) int64: good_reads, exp_reads,
+    num_reads."""
+    rl = end_pos - pos
+    end_read = pos + rl - 1
+    end_mate = mate_pos + rl - 1
+    in_range = (pos >= s1j) & (pos <= s2j)
+
+    base = in_job & goodq & paired & uniq & in_range & fwd
+    ov = torch.where(end_read > s2j, s2j - pos + 1, rl)
+    mate_crosses = end_mate >= tj
+    c1 = base & munmap
+    c2 = base & ~munmap & diff_ref
+    c2_exp = c2 & (pos + mij < slj)
+    c3 = base & ~munmap & ~diff_ref & ~mrev & mate_crosses
+    c4 = base & ~munmap & ~diff_ref & mrev & mate_crosses
+    zero = torch.zeros_like(ov)
+    vals = torch.stack([torch.where(c4, ov, zero),
+                        torch.where(c1 | c2_exp | c3 | c4, ov, zero),
+                        (c1 | c2 | c3 | c4).long()])
+    # segment sums of the contiguous job runs: exclusive prefix at the
+    # run ends minus the prefix at the run starts
+    csum = torch.nn.functional.pad(torch.cumsum(vals, dim=1), (1, 0))
+    return csum[:, ends] - csum[:, starts]
+
+
 def count_resident(cols, jobs_t, rows: int) -> torch.Tensor:
     """Count one chunk on the columns' device.
 
@@ -182,56 +222,127 @@ def count_resident(cols, jobs_t, rows: int) -> torch.Tensor:
     st = starts[job]
     in_job = (slot >= st) & (slot < ends[job])
     row = torch.clamp(lo[job] + (slot - st), 0, pos_c.shape[0] - 1)
-    pos = pos_c[row].long()
-    end_pos = end_c[row].long()
-    mate_pos = mate_c[row].long()
     bits = bits_c[row].long()
-    s1j, s2j, tj = s1[job], s2[job], t[job]
+    return _job_sums(
+        starts, ends, in_job, pos_c[row].long(), end_c[row].long(),
+        mate_c[row].long(), (bits & _B_PAIRED) != 0, (bits & _B_REV) == 0,
+        (bits & _B_MUNMAP) != 0, (bits & _B_MREV) != 0,
+        (no_mult[job] != 0) | ((bits & _B_UNIQ) != 0),
+        (bits & _B_GOODQ) != 0, (bits & _B_DIFFREF) != 0,
+        s1[job], s2[job], t[job], max_insert[job], seq_len[job])
 
-    rl = end_pos - pos
-    end_read = pos + rl - 1
-    end_mate = mate_pos + rl - 1
-    paired = (bits & _B_PAIRED) != 0
-    fwd = (bits & _B_REV) == 0
-    munmap = (bits & _B_MUNMAP) != 0
-    mrev = (bits & _B_MREV) != 0
-    uniq = (no_mult[job] != 0) | ((bits & _B_UNIQ) != 0)
-    goodq = (bits & _B_GOODQ) != 0
-    diff_ref = (bits & _B_DIFFREF) != 0
-    in_range = (pos >= s1j) & (pos <= s2j)
 
-    base = in_job & goodq & paired & uniq & in_range & fwd
-    ov = torch.where(end_read > s2j, s2j - pos + 1, rl)
-    mate_crosses = end_mate >= tj
-    c1 = base & munmap
-    c2 = base & ~munmap & diff_ref
-    c2_exp = c2 & (pos + max_insert[job] < seq_len[job])
-    c3 = base & ~munmap & ~diff_ref & ~mrev & mate_crosses
-    c4 = base & ~munmap & ~diff_ref & mrev & mate_crosses
-    zero = torch.zeros_like(ov)
-    vals = torch.stack([torch.where(c4, ov, zero),
-                        torch.where(c1 | c2_exp | c3 | c4, ov, zero),
-                        (c1 | c2 | c3 | c4).long()])
-    # segment sums of the contiguous job runs: exclusive prefix at the
-    # run ends minus the prefix at the run starts
-    csum = torch.nn.functional.pad(torch.cumsum(vals, dim=1), (1, 0))
-    return csum[:, ends] - csum[:, starts]
+def count_payload(rows: dict, jobs_t: torch.Tensor) -> torch.Tensor:
+    """Count one chunk of row-payload jobs on the tensors' device.
+
+    rows: _ROW_FIELDS -> (R,) tensors of the jobs' rows back to back, at
+    their wire widths (flag, nh uint16; xt, goodq uint8; the rest int32);
+    jobs_t: (8, J) int32 rows starts, ends, s1, s2, t, max_insert,
+    seq_len, no_mult — job jj owns rows [starts, ends).  Returns (3, J)
+    int64: good_reads, exp_reads, num_reads."""
+    starts, ends, s1, s2, t, max_insert, seq_len, no_mult = jobs_t.long()
+    job = torch.repeat_interleave(
+        torch.arange(starts.shape[0], device=jobs_t.device), ends - starts,
+        output_size=rows["pos"].shape[0])
+    flag = rows["flag"].long()
+    # every row belongs to a job: in_job is all true
+    return _job_sums(
+        starts, ends, True, rows["pos"].long(),
+        rows["end_pos"].long(), rows["mate_pos"].long(),
+        (flag & FPAIRED) != 0, (flag & FREVERSE) == 0,
+        (flag & FMUNMAP) != 0, (flag & FMREVERSE) != 0,
+        (no_mult[job] != 0) | ((rows["nh"].long() == 1)
+                               & (rows["xt"].long() == XT_U)),
+        rows["goodq"] != 0, rows["ref_id"] != rows["mate_ref"],
+        s1[job], s2[job], t[job], max_insert[job], seq_len[job])
+
+
+def _chunks(lens: list[int], weights: list[int], host_count, results: list
+            ) -> list[list[int]]:
+    """Split the jobs at job boundaries so each chunk stays under ROW_CAP
+    rows and OV_CAP summed read lengths; a job that alone exceeds OV_CAP
+    is counted on the host (host_count(k)) into results instead."""
+    chunks: list[list[int]] = []
+    chunk: list[int] = []
+    chunk_rows = chunk_w = 0
+    for k, n in enumerate(lens):
+        if weights[k] > OV_CAP:
+            results[k] = host_count(k)
+            continue
+        if chunk and (chunk_rows + n > ROW_CAP
+                      or chunk_w + weights[k] > OV_CAP):
+            chunks.append(chunk)
+            chunk, chunk_rows, chunk_w = [], 0, 0
+        chunk.append(k)
+        chunk_rows += n
+        chunk_w += weights[k]
+    if chunk:
+        chunks.append(chunk)
+    return chunks
+
+
+def _finisher(pending: list, results: list):
+    def _finish():
+        for idxs, res in pending:
+            r = res.cpu().numpy()
+            for jj, k in enumerate(idxs):
+                results[k] = (int(r[0, jj]), int(r[1, jj]), int(r[2, jj]))
+        return results
+
+    return _finish
+
+
+def _count_jobs_payload(jobs: list[dict], dev: torch.device):
+    """Queue every chunk of row-payload jobs on `dev`; returns the
+    finisher."""
+    lens = [len(j["pos"]) for j in jobs]
+    # worst-case cumsum contribution per job = summed read lengths
+    # (ov <= rl); used to split chunks before the sums could overflow
+    weights = [
+        int(np.clip(np.asarray(j["end_pos"], np.int64)
+                    - np.asarray(j["pos"], np.int64), 0, None).sum())
+        for j in jobs]
+    results: list = [None] * len(jobs)
+    chunks = _chunks(lens, weights, lambda k: _count_job_host(jobs[k]),
+                     results)
+    pending: list[tuple[list[int], torch.Tensor]] = []
+    for idxs in chunks:
+        rows = {}
+        for f in _ROW_FIELDS:
+            parts = [np.asarray(jobs[k][f]) for k in idxs]
+            if f == "nh":
+                # uint16 wire width: clip so oversized NH tags cannot
+                # wrap onto the ==1 uniqueness test
+                parts = [np.clip(v, 0, 65535) for v in parts]
+            rows[f] = np.concatenate(parts).astype(
+                _ROW_DTYPES.get(f, np.int32))
+        jt = np.zeros((8, len(idxs)), np.int32)
+        jt[1] = np.cumsum([lens[k] for k in idxs])
+        jt[0, 1:] = jt[1, :-1]
+        for f, name in enumerate(_SCA_FIELDS):
+            jt[2 + f] = [jobs[k][name] for k in idxs]
+        WIRE["bytes_up"] += jt.nbytes + sum(v.nbytes for v in rows.values())
+        WIRE["dispatches"] += 1
+        res = count_payload(
+            {f: torch.from_numpy(v).to(dev) for f, v in rows.items()},
+            torch.from_numpy(jt).to(dev))
+        pending.append((idxs, res))
+    return _finisher(pending, results)
 
 
 def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
-    """Counts (good_reads, exp_reads, num_reads) of each resident range
-    job (dicts with _mb, lib, lo, hi and the scalars s1, s2, t,
-    max_insert, seq_len, no_mult), in order.  defer=True queues every
-    chunk on the device and returns a zero-argument finisher that fetches
-    the results."""
+    """Counts (good_reads, exp_reads, num_reads) of each job, in order, on
+    `device`.  A job is a resident range (a dict with _mb, lib, lo, hi)
+    or a row payload (a dict of _ROW_FIELDS row arrays), with the
+    scalars s1, s2, t, max_insert, seq_len, no_mult; every job of one
+    call has the same form.  defer=True queues every chunk on the device
+    and returns a zero-argument finisher that fetches the results."""
     if not jobs:
         return (lambda: []) if defer else []
-    if "_mb" not in jobs[0]:
-        raise NotImplementedError(
-            "row-payload edge-count jobs (GAM_RESIDENT=0) are not ported "
-            "to gam_ngs_tpu_torch yet (ROADMAP, queue 1: the payload/mesh "
-            "count)")
     dev = torch.device(device)
+    if "_mb" not in jobs[0]:
+        fin = _count_jobs_payload(jobs, dev)
+        return fin if defer else fin()
 
     # coalesce the jobs' row ranges per table: only the union of touched
     # rows is uploaded
@@ -274,22 +385,9 @@ def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
         abs_lo.append(arena_base(tid, j["lo"]) if j["hi"] > j["lo"] else 0)
 
     results: list = [None] * len(jobs)
-    chunks: list[list[int]] = []
-    chunk: list[int] = []
-    chunk_rows = chunk_w = 0
-    for k, n in enumerate(lens):
-        if weights[k] > OV_CAP:
-            results[k] = _count_job_host(_materialize_resident(jobs[k]))
-            continue
-        if chunk and (chunk_rows + n > ROW_CAP
-                      or chunk_w + weights[k] > OV_CAP):
-            chunks.append(chunk)
-            chunk, chunk_rows, chunk_w = [], 0, 0
-        chunk.append(k)
-        chunk_rows += n
-        chunk_w += weights[k]
-    if chunk:
-        chunks.append(chunk)
+    chunks = _chunks(
+        lens, weights,
+        lambda k: _count_job_host(_materialize_resident(jobs[k])), results)
 
     pending: list[tuple[list[int], torch.Tensor]] = []
     if chunks:
@@ -320,11 +418,5 @@ def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
                                  max(off, 1))
             pending.append((idxs, res))
 
-    def _finish():
-        for idxs, res in pending:
-            r = res.cpu().numpy()
-            for jj, k in enumerate(idxs):
-                results[k] = (int(r[0, jj]), int(r[1, jj]), int(r[2, jj]))
-        return results
-
-    return _finish if defer else _finish()
+    fin = _finisher(pending, results)
+    return fin if defer else fin()

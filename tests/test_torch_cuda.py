@@ -235,3 +235,67 @@ def test_cuda_merge_matches_oracle(dev, tmp_path, corpus):
                 ".noblocks.AF.fasta", ".notmerged.fasta"):
         assert (tmp_path / f"cuda{ext}").read_bytes() == \
             (tmp_path / f"oracle{ext}").read_bytes(), ext
+
+
+def test_device_join_on_the_card_matches_native(dev):
+    """join and analyze on the card: the blocks of scale_columns' 50x
+    stream equal the native scan's and the CPU run's, and each ran once
+    on the card."""
+    from gam_ngs_tpu_torch.native.loader import find_blocks_native
+    from gam_ngs_tpu_torch.ops import device_join
+
+    m_cols, s_cols = tp.scale_columns(0.5, 2, seed=1)
+    before = dict(device_join.launches)
+    got = device_join.find_blocks_device(m_cols, s_cols, 10, device=dev)
+    assert {k: device_join.launches[k] - before[k] for k in before} == {
+        "join": 1, "analyze": 1}
+    cpu = device_join.find_blocks_device(m_cols, s_cols, 10,
+                                         device=torch.device("cpu"))
+    nat = find_blocks_native(m_cols, s_cols, 10)
+    for k in nat:
+        assert (got[k] == nat[k]).all() and (got[k] == cpu[k]).all(), k
+
+
+def test_payload_count_on_the_card(dev):
+    """Row-payload edge-count jobs (GAM_RESIDENT=0) on the card against
+    the exact host replica."""
+    import numpy as np
+
+    from gam_ngs_tpu_torch.ops import region_score as rs
+
+    rng = np.random.default_rng(5)
+    jobs = []
+    for _ in range(9):
+        n = int(rng.integers(0, 400))
+        pos = rng.integers(0, 5000, n).astype(np.int32)
+        jobs.append({
+            "pos": pos, "end_pos": pos + rng.integers(50, 200, n).astype(
+                np.int32),
+            "flag": rng.choice([1, 17, 9, 33, 49], n).astype(np.int32),
+            "nh": rng.choice([1, 1, 1, 2], n).astype(np.int32),
+            "xt": np.full(n, ord("U"), np.int32),
+            "ref_id": np.zeros(n, np.int32),
+            "mate_ref": rng.choice([0, 0, 0, 1], n).astype(np.int32),
+            "mate_pos": rng.integers(0, 6000, n).astype(np.int32),
+            "goodq": np.ones(n, np.int32), "s1": 100, "s2": 4000,
+            "t": 3000, "max_insert": 600, "seq_len": 9000, "no_mult": 0})
+    got = rs.count_jobs(jobs, dev)
+    assert got == [rs._count_job_host(j) for j in jobs]
+    assert any(n for _g, _e, n in got)
+
+
+@pytest.mark.parametrize("corpus", ["junction", "fork_bubble"])
+def test_cuda_create_matches_native(dev, tmp_path, corpus):
+    if corpus == "junction":
+        _genome, ml, sl, _mfa, _sfa = tp.junction_corpus(tmp_path)
+    else:
+        ml, sl, _mfa, _sfa = tp.fork_bubble_corpus(tmp_path)
+    out = {}
+    for device in ("native", "cuda"):
+        assert cli.main(["create", "--master-bam", ml, "--slave-bam", sl,
+                         "--min-block-size", "10", "--output",
+                         str(tmp_path / device), "--device", device]) == 0
+        out[device] = [open(p, "rb").read() for p in (
+            str(tmp_path / device) + ".blocks", ml + ".isize",
+            sl + ".isize")]
+    assert out["cuda"] == out["native"]

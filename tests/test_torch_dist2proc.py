@@ -1,13 +1,15 @@
-"""The port's merge with two real processes over a torch.distributed gloo
-group on localhost (merge --coordinator, --device cpu), counterparts of
+"""The port's create and merge with two real processes over a
+torch.distributed gloo group on localhost (create / merge
+--coordinator, --device cpu), counterparts of
 tests/test_distributed_2proc.py and tests/test_multiway.py's
-two-process test.  `create` runs in one process (the port's create is
-single-process), then both processes run the same merge command through
-the port's CLI in a process where jax and gam_ngs_tpu cannot be
-imported.  Host 0's six outputs must be byte-identical to the port's
-one-process merge and to the JAX package's sequential run_merge on the
-same inputs, and the two ranks' aligned cells must sum to the
-one-process run's."""
+two-process test.  Both processes run the same command through the
+port's CLI in a process where jax and gam_ngs_tpu cannot be imported.
+The merge tests create in one process; host 0's six outputs must be
+byte-identical to the port's one-process merge and to the JAX package's
+sequential run_merge on the same inputs, and the two ranks' aligned
+cells must sum to the one-process run's.  The create test runs the
+sharded device join in both processes: host 0's .blocks must be the
+one-process native create's, and the merge from them its outputs."""
 
 import json
 import os
@@ -29,6 +31,7 @@ from gam_ngs_tpu.models.create import run_create as jax_run_create
 from gam_ngs_tpu.models.merge import MergeOptions as JaxMergeOptions
 from gam_ngs_tpu.models.merge import run_merge as jax_run_merge
 from gam_ngs_tpu.ops.bsw_batch import BswEngine as JaxEngine
+from gam_ngs_tpu_torch.core.multibam import MultiBam
 from gam_ngs_tpu_torch.models.create import CreateOptions, run_create
 from gam_ngs_tpu_torch.models.merge import MergeOptions, run_merge
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
@@ -64,22 +67,28 @@ def _merge_kw(ml, sl, mfa, sfa, blocks):
 
 def merge_two_processes(workdir, ml, sl, mfa, sfa, blocks, out,
                         timeout_s: float = 240) -> list[str]:
-    """Both ranks of `merge --coordinator` (hard deadline; every process
-    is killed on expiry); returns their logs."""
+    """Both ranks of `merge --coordinator`; returns their logs."""
+    return run_ranks(workdir, [
+        "merge", "--master-bam", ml, "--slave-bam", sl, "--blocks-file",
+        blocks, "--master-fasta", mfa, "--slave-fasta", sfa,
+        "--min-block-size", "10", "--output", out, "--device", "cpu"],
+        pathlib.Path(out).name, timeout_s)
+
+
+def run_ranks(workdir, argv, tag: str, timeout_s: float = 240
+              ) -> list[str]:
+    """Both ranks of the port's CLI command argv with --coordinator (hard
+    deadline; every process is killed on expiry); returns their logs."""
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=str(ROOT), GAM_BARRIER_TIMEOUT="180",
                OMP_NUM_THREADS="2")
     procs = []
     for pid in range(2):
-        logf = str(workdir / f"{pathlib.Path(out).name}.rank{pid}.log")
+        logf = str(workdir / f"{tag}.rank{pid}.log")
         with open(logf, "w") as fh:
             procs.append((subprocess.Popen(
-                [sys.executable, "-c", PROG, "merge", "--master-bam", ml,
-                 "--slave-bam", sl, "--blocks-file", blocks,
-                 "--master-fasta", mfa, "--slave-fasta", sfa,
-                 "--min-block-size", "10", "--output", out, "--device",
-                 "cpu", "--coordinator", coord, "--num-processes", "2",
-                 "--process-id", str(pid)],
+                [sys.executable, "-c", PROG, *argv, "--coordinator", coord,
+                 "--num-processes", "2", "--process-id", str(pid)],
                 stdout=fh, stderr=subprocess.STDOUT, env=env,
                 cwd=str(workdir)), logf))
     deadline = time.monotonic() + timeout_s
@@ -87,8 +96,9 @@ def merge_two_processes(workdir, ml, sl, mfa, sfa, blocks, out,
         for p, logf in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     except subprocess.TimeoutExpired:
-        raise AssertionError("merge --coordinator hung; rank 0's log:\n"
-                             + open(procs[0][1]).read()[-4000:]) from None
+        raise AssertionError(f"{argv[0]} --coordinator hung; rank 0's log:"
+                             "\n" + open(procs[0][1]).read()[-4000:]
+                             ) from None
     finally:
         for p, _ in procs:
             if p.poll() is None:
@@ -126,7 +136,8 @@ def test_two_process_merge_byte_identical(tmp_path, corpus):
         _genomes, ml, sl, mfa, sfa = tp.two_partition_corpus(tmp_path)
     run_create(CreateOptions(master_bam_file=ml, slave_bam_file=sl,
                              min_block_size=10,
-                             output_file_prefix=str(tmp_path / "out")),
+                             output_file_prefix=str(tmp_path / "out"),
+                             engine="native"),
                log=quiet)
     kw = _merge_kw(ml, sl, mfa, sfa, str(tmp_path / "out.blocks"))
     jax_run_merge(JaxMergeOptions(output_file_prefix=str(tmp_path / "jax"),
@@ -141,6 +152,48 @@ def test_two_process_merge_byte_identical(tmp_path, corpus):
     assert two == _outputs(str(tmp_path / "jax"))
     cells = check_ranks(logs, str(tmp_path / "one.metrics.json"))
     assert all(cells) == (corpus == "two_partitions"), cells
+
+
+@pytest.mark.parametrize("corpus", ["junction", "two_partitions"])
+def test_two_process_create_then_merge(tmp_path, corpus):
+    """create --coordinator over two processes (the sharded device join
+    on the CPU; one slave contig, all rank 0's, or two, one a rank)
+    writes the one-process native create's .blocks and .isize files on
+    host 0 only; the two-process merge from those blocks writes the
+    one-process merge's six outputs."""
+    if corpus == "junction":
+        _genome, ml, sl, mfa, sfa = _build_inputs(tmp_path)
+    else:
+        _genomes, ml, sl, mfa, sfa = tp.two_partition_corpus(tmp_path)
+    one = str(tmp_path / "one")
+    run_create(CreateOptions(master_bam_file=ml, slave_bam_file=sl,
+                             min_block_size=10, output_file_prefix=one,
+                             engine="native"), log=quiet)
+    isize = {p: pathlib.Path(p + ".isize").read_bytes() for p in (ml, sl)}
+    for p in isize:
+        os.unlink(p + ".isize")
+    two = str(tmp_path / "two")
+    logs = run_ranks(tmp_path, [
+        "create", "--master-bam", ml, "--slave-bam", sl, "--min-block-size",
+        "10", "--output", two, "--device", "cpu"], "create")
+    assert pathlib.Path(two + ".blocks").read_bytes() == \
+        pathlib.Path(one + ".blocks").read_bytes()
+    assert {p: pathlib.Path(p + ".isize").read_bytes() for p in isize} \
+        == isize
+    n_slave = len(MultiBam.open(sl).ref_names)
+    assert n_slave == (1 if corpus == "junction" else 2)
+    for pid, log in enumerate(logs):
+        assert f"process {pid}/2 joined" in log, log[-2000:]
+        assert f"[create] host {pid}: " in log, log[-2000:]
+        wrote = "[main] writing blocks on file" in log
+        assert wrote == (pid == 0), pid
+    kw = _merge_kw(ml, sl, mfa, sfa, two + ".blocks")
+    run_merge(MergeOptions(output_file_prefix=one, engine=BswEngine(CPU),
+                           **kw), log=quiet)
+    logs = merge_two_processes(tmp_path, ml, sl, mfa, sfa, two + ".blocks",
+                               two)
+    assert _outputs(two) == _outputs(one)
+    check_ranks(logs, one + ".metrics.json")
 
 
 def test_scale_corpus_matches_bench_build_corpus(tmp_path):
@@ -222,7 +275,7 @@ def test_three_assembly_iterated_merge_two_process(tmp_path):
         else:
             run_create(CreateOptions(
                 master_bam_file=ml, slave_bam_file=sl, min_block_size=10,
-                output_file_prefix=prefix), log=quiet)
+                output_file_prefix=prefix, engine="native"), log=quiet)
         kw = _merge_kw(ml, sl, mfa, sfa, prefix + ".blocks")
         if name == "jax":
             jax_run_merge(JaxMergeOptions(output_file_prefix=prefix,

@@ -36,7 +36,7 @@ quiet = lambda *_: None  # noqa: E731
 def _create(tmp, ml, sl):
     return run_create(CreateOptions(
         master_bam_file=ml, slave_bam_file=sl, min_block_size=10,
-        output_file_prefix=str(tmp / "out")), log=quiet)
+        output_file_prefix=str(tmp / "out"), engine="native"), log=quiet)
 
 
 def _common(tmp, ml, sl, mfa, sfa):
@@ -138,11 +138,9 @@ def test_cli_n50_matches_and_refusals(tmp_path, capsys):
     ours = capsys.readouterr().out
     assert jax_cli.main(["n50", mfa]) == 0
     assert ours == capsys.readouterr().out and ours
-    # merge --coordinator runs (test_torch_dist2proc.py); create's
-    # multi-process path needs the device join, which is not ported
-    with pytest.raises(NotImplementedError,
-                       match="multi-process create needs the device block "
-                             "join"):
+    # create and merge --coordinator run (test_torch_dist2proc.py); a
+    # coordinator without the group's size and rank is refused
+    with pytest.raises(ValueError, match="needs --num-processes"):
         cli.main(["create", "--master-bam", ml, "--slave-bam", sl,
                   "--coordinator", "localhost:1234"])
     with pytest.raises(SystemExit):  # tpu is not a device of the port

@@ -102,7 +102,8 @@ def test_distributed_build_matches_sequential(tmp_path):
     _genome, ml, sl, mfa, sfa = _build_inputs(tmp_path)
     run_create(CreateOptions(master_bam_file=ml, slave_bam_file=sl,
                              min_block_size=10,
-                             output_file_prefix=str(tmp_path / "out")),
+                             output_file_prefix=str(tmp_path / "out"),
+                             engine="native"),
                log=quiet)
     blocks = blocks_io.load_blocks(str(tmp_path / "out.blocks"), 10)
     master = MultiBam.open(ml)
@@ -221,7 +222,7 @@ def test_sharded_partition_ingestion_matches_sequential(tmp_path):
     testutil.write_bam_list(sl, [sp], [(100, 1000)])
     blocks = run_create(CreateOptions(
         master_bam_file=ml, slave_bam_file=sl, min_block_size=10,
-        output_file_prefix=str(tmp_path / "out")), log=quiet)
+        output_file_prefix=str(tmp_path / "out"), engine="native"), log=quiet)
 
     def open_pair(deferred):
         if deferred:

@@ -1,8 +1,10 @@
 """The port's partition edge count (torch ops, here on the CPU) against
 the exact host replica (_count_job_host), the JAX package's count_jobs
 and the sequential edge weighting, on the tests/test_region_score.py
-corpus.  Each package reads the corpus with its own loaders and builds
-its own graphs.  Counts are integers: exact equality throughout."""
+corpus: resident range jobs (the default) and row-payload jobs
+(GAM_RESIDENT=0).  Each package reads the corpus with its own loaders
+and builds its own graphs.  Counts are integers: exact equality
+throughout."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,8 @@ from gam_ngs_tpu_torch.graphs import assembly, compact, paired
 from gam_ngs_tpu_torch.graphs.partition import partition_blocks
 from gam_ngs_tpu_torch.models.create import CreateOptions, run_create
 from gam_ngs_tpu_torch.ops import region_score as rs
-from test_region_score import _pipeline_graphs
+import torch_problems as tp
+from test_region_score import _pipeline_graphs, _random_job
 
 CPU = torch.device("cpu")
 
@@ -34,25 +37,31 @@ def corpus(tmp_path_factory):
     ml, sl = str(tmp / "m.list"), str(tmp / "s.list")
     blocks = run_create(CreateOptions(
         master_bam_file=ml, slave_bam_file=sl, min_block_size=10,
-        output_file_prefix=str(tmp / "port")), log=lambda *_: None)
+        output_file_prefix=str(tmp / "port"),
+        engine="native"), log=lambda *_: None)
     master, slave = MultiBam.open(ml), MultiBam.open(sl)
     master.read_stats_from_file(ml + ".isize")
     slave.read_stats_from_file(sl + ".isize")
     return {"jax": jax_side, "port": (blocks, master, slave)}
 
 
-def _jobs(corpus, side="port"):
-    """Every graph's resident range jobs, concatenated, built by one
-    package's graph classes from its own inputs."""
+def _jobs(corpus, side="port", resident=True, monkeypatch=None):
+    """Every graph's jobs, concatenated, built by one package's graph
+    classes from its own inputs: resident range jobs, or with
+    resident=False the row-payload jobs GAM_RESIDENT=0 plans."""
     asm, cmp_, par = ((assembly, compact, paired) if side == "port" else
                       (jax_assembly, jax_compact, jax_paired))
     blocks, master, slave = corpus[side]
+    if not resident:
+        monkeypatch.setenv("GAM_RESIDENT", "0")
     jobs = []
     for ag_id, rows in enumerate(
             par.partition_blocks_by_paired_contigs(blocks), start=1):
         cg = cmp_.CompactAssemblyGraph(asm.AssemblyGraph(blocks, rows, ag_id))
         jobs += cg.prepare_edge_weights(master, None, slave, None)
-    assert jobs and "_mb" in jobs[0]
+    if not resident:
+        monkeypatch.delenv("GAM_RESIDENT")
+    assert jobs and ("_mb" in jobs[0]) == resident
     return jobs
 
 
@@ -96,18 +105,92 @@ def test_defer_and_empty(corpus):
     assert rs.count_jobs([empty], CPU) == [(0, 0, 0)]
 
 
-def test_payload_jobs_not_ported():
+def test_payload_count_matches_host_replica_and_jax(corpus, monkeypatch):
+    """Row-payload jobs (GAM_RESIDENT=0) on the corpus's graphs, and
+    random jobs of every read class, against the exact host replica and
+    the JAX package's payload count; the payload and resident counts of
+    the same edges agree."""
+    jobs = _jobs(corpus, resident=False, monkeypatch=monkeypatch)
+    d0, b0 = rs.WIRE["dispatches"], rs.WIRE["bytes_up"]
+    got = rs.count_jobs(jobs, CPU)
+    assert rs.WIRE["dispatches"] == d0 + 1
+    # the rows travel at their wire widths: 5 int32 + 2 uint16 + 2 uint8
+    # columns = 26 bytes a row, plus 8 int32 = 32 bytes a job
+    rows = sum(len(j["pos"]) for j in jobs)
+    assert rs.WIRE["bytes_up"] - b0 == 26 * rows + 32 * len(jobs)
+    assert got == [rs._count_job_host(j) for j in jobs]
+    assert got == jax_rs.count_jobs(_jobs(corpus, "jax", resident=False,
+                                          monkeypatch=monkeypatch))
+    assert got == rs.count_jobs(_jobs(corpus), CPU)
+    assert any(n >= 10 for _g, _e, n in got)
     rng = np.random.default_rng(5)
-    n = 20
-    pos = rng.integers(0, 5000, n).astype(np.int32)
-    job = {"pos": pos, "end_pos": pos + 50, "flag": np.ones(n, np.int32),
-           "nh": np.ones(n, np.int32), "xt": np.full(n, 85, np.int32),
-           "ref_id": np.zeros(n, np.int32), "mate_ref": np.zeros(n, np.int32),
-           "mate_pos": pos + 150, "goodq": np.ones(n, np.int32), "s1": 100,
-           "s2": 4000, "t": 3000, "max_insert": 600, "seq_len": 9000,
-           "no_mult": 0}
-    with pytest.raises(NotImplementedError, match="GAM_RESIDENT"):
-        rs.count_jobs([job], CPU)
+    rand = [_random_job(rng, int(rng.integers(0, 400))) for _ in range(6)]
+    rand[2]["nh"] = np.full(len(rand[2]["pos"]), 65537, np.int32)  # wraps
+    rand[3]["no_mult"] = 1
+    got = rs.count_jobs(rand, CPU)
+    assert got == [rs._count_job_host(j) for j in rand]
+    assert got == jax_rs.count_jobs(rand)
+    fin = rs.count_jobs(rand, CPU, defer=True)
+    assert callable(fin) and fin() == got
+
+
+def test_payload_row_cap_and_ov_cap_route(monkeypatch):
+    """Payload chunks split at job boundaries under ROW_CAP and OV_CAP;
+    a job whose summed read lengths pass OV_CAP is counted on the host
+    (tests/test_region_score.py::test_long_read_overflow_routes_to_host
+    with the port's caps)."""
+    rng = np.random.default_rng(6)
+    big = _random_job(rng, 300, long_reads=True)
+    small = _random_job(rng, 50)
+    monkeypatch.setattr(rs, "OV_CAP", 10000)  # big alone exceeds it
+    calls = []
+    plain = rs.count_payload
+
+    def spy(rows, jobs_t):
+        calls.append(jobs_t.shape[1])
+        return plain(rows, jobs_t)
+
+    monkeypatch.setattr(rs, "count_payload", spy)
+    got = rs.count_jobs([small, big, small], CPU)
+    assert got[1] == rs._count_job_host(big)
+    assert got[0] == got[2] == rs._count_job_host(small)
+    # each small job weighs ~6250 (> cap/2): two dispatches of one job
+    assert calls == [1, 1]
+    monkeypatch.setattr(rs, "OV_CAP", 1 << 30)
+    monkeypatch.setattr(rs, "ROW_CAP", 60)  # one small job a chunk
+    calls.clear()
+    assert rs.count_jobs([small, small, small], CPU) == [got[0]] * 3
+    assert calls == [1, 1, 1]
+
+
+def test_merge_payload_byte_identical(corpus, tmp_path, monkeypatch):
+    """One whole merge under GAM_RESIDENT=0 writes the six outputs of the
+    default (resident) merge."""
+    from gam_ngs_tpu_torch.models.merge import MergeOptions, run_merge
+    from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
+
+    tmp = tmp_path
+    _genome, ml, sl, mfa, sfa = tp.junction_corpus(tmp)
+    run_create(CreateOptions(master_bam_file=ml, slave_bam_file=sl,
+                             min_block_size=10,
+                             output_file_prefix=str(tmp / "out"),
+                             engine="native"),
+               log=lambda *_: None)
+    outs = {}
+    for tag, resident in (("res", "1"), ("pay", "0")):
+        monkeypatch.setenv("GAM_RESIDENT", resident)
+        d0 = rs.WIRE["arena_bytes_up"]
+        run_merge(MergeOptions(
+            master_bam_file=ml, slave_bam_file=sl,
+            blocks_file=str(tmp / "out.blocks"), master_fasta_file=mfa,
+            slave_fasta_file=sfa, min_block_size=10,
+            output_file_prefix=str(tmp / tag), engine=BswEngine(CPU)),
+            log=lambda *_: None)
+        assert (rs.WIRE["arena_bytes_up"] > d0) == (resident == "1")
+        outs[tag] = {ext: (tmp / f"{tag}{ext}").read_bytes() for ext in (
+            ".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
+            ".noblocks.AF.fasta", ".notmerged.fasta")}
+    assert outs["pay"] == outs["res"]
 
 
 @pytest.mark.parametrize("device", [CPU, None])

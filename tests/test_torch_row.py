@@ -261,7 +261,8 @@ def test_row_merges_match_jax(tmp_path, corpus, monkeypatch):
         ml, sl, mfa, sfa = tp.fork_bubble_corpus(tmp_path)
     run_create(CreateOptions(master_bam_file=ml, slave_bam_file=sl,
                              min_block_size=10,
-                             output_file_prefix=str(tmp_path / "out")),
+                             output_file_prefix=str(tmp_path / "out"),
+                             engine="native"),
                log=quiet)
     common = dict(master_bam_file=ml, slave_bam_file=sl,
                   blocks_file=str(tmp_path / "out.blocks"),

@@ -23,6 +23,9 @@ banded-SW helpers reach the shared host code only through the port.
   bench/hard_corpus.py builds them;
 - scale_corpus: bench/e2e_scale.py::build_corpus's corpus (same seed,
   contig cuts and read lattice) at a given genome size;
+- scale_columns: that corpus's layout at any pair stride as the block
+  construction's input columns (core.blocks.stream_columns), without a
+  BAM;
 - read_fasta_seqs: the sequences of a FASTA file.
 """
 
@@ -424,6 +427,57 @@ def scale_corpus(genome_mb: float, tmp_path, break_every: int = 0) -> dict:
         tmp_path, ctgs(m_cuts, "M"), ctgs(s_cuts, "S"), m_recs, s_recs,
         {"m": "m", "s": "s"})
     return dict(genome=genome, ml=ml, sl=sl, mfa=mfa, sfa=sfa)
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finaliser: a bijection of uint64 (wrapping)."""
+    x = x.astype(np.uint64)
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def scale_columns(genome_mb: float, stride: int, seed: int = 0):
+    """scale_corpus's layout (master contigs cut every 50 kbp, slave
+    contigs every 50 kbp shifted by 25 kbp, an FR pair of 50 bp reads at
+    insert 200 every `stride` bp, a pair kept on a side where one contig
+    holds both mates) as the (master, slave) column tuples of
+    core.blocks.stream_columns: (name hash h1 u64, h2 u64, first u8,
+    contig i32, pos i32, end i32, reverse u8) of each side's reads in
+    coordinate order, ties in the order scale_corpus writes them.  No BAM
+    is written, so the size is free: at stride 2 a 5 Mbp genome gives
+    ~5 M rows a side (50x coverage).  The name hashes are a bijection of
+    the pair number salted from `seed` (the BAM decoder hashes names)."""
+    n = int(genome_mb * 1_000_000)
+    cut = 50_000
+    salt = np.random.default_rng(seed).integers(0, 2 ** 62, 2,
+                                                dtype=np.uint64)
+    p = np.arange(0, n - INSERT, stride, dtype=np.int64)
+    k = np.arange(len(p), dtype=np.uint64)
+    m = p + INSERT - READ_LEN
+    m_cuts = np.arange(0, n + 1, cut, dtype=np.int64)
+    s_cuts = np.array([0] + list(range(cut // 2, n, cut)) + [n], np.int64)
+
+    def side(cuts):
+        c = np.searchsorted(cuts, p, side="right") - 1
+        ok = m + READ_LEN <= cuts[c + 1]
+        c, off = c[ok], cuts[c[ok]]
+        kk = np.repeat(k[ok], 2)
+        pos = np.stack([p[ok] - off, m[ok] - off], 1).ravel()
+        ctg = np.repeat(c, 2)
+        # mate 1 forward, mate 2 reverse; a stable sort keeps the
+        # writer's order (pair by pair, mate 1 first) among equal keys
+        first = np.tile(np.array([1, 0], np.uint8), len(c))
+        order = np.lexsort((pos, ctg))
+        kk, pos, ctg, first = kk[order], pos[order], ctg[order], first[order]
+        return (_mix64(kk + salt[0]), _mix64(kk ^ salt[1]), first,
+                ctg.astype(np.int32), pos.astype(np.int32),
+                (pos + READ_LEN).astype(np.int32), 1 - first)
+
+    return side(m_cuts), side(s_cuts)
 
 
 def oracle(problems, band: int):
