@@ -15,7 +15,11 @@ Phases (all by default; any failure raises and exits non-zero):
           4000 with four and eight row lanes a thread, row forward
           only): the anti-diagonal forward with the walk over its
           words, the row forward with the walk over row-major words (up
-          to band 1023); and the CUDA engine against the exact host
+          to band 1023); the row forward and its walk at the first and
+          last band of each of its warp instances and at the switches to
+          its block kernels (15, 16, 31, 32, ..., 159, 160, 511, 512;
+          tests/torch_problems.py::boundary_problems); and the CUDA
+          engine against the exact host
           aligner (merge --device oracle's bsw_align) on every soak
           problem: anti-diagonal in lean and edits fetch, kernel="row"
           in lean and edits fetch, and the host traceback, then
@@ -38,7 +42,8 @@ Phases (all by default; any failure raises and exits non-zero):
           --device cuda (anti-diagonal forward + walk, and the edge
           count), the same under GAM_KERNEL=row (row forward + walk),
           and run_merge with a traceback="host" engine (row forward,
-          host walk).  Each kernel against its plain version, bit for
+          host walk), whose six outputs must equal the first's byte for
+          byte.  Each kernel against its plain version, bit for
           bit, on the inputs the merges gave it (the anti-diagonal
           path's first chunk of every batch x window shape, the row
           path's 8-problem chunk); warm merges of the anti-diagonal path
@@ -77,7 +82,9 @@ Phases (all by default; any failure raises and exits non-zero):
           bit, and the walks over the two forwards' words compared with
           each other: B=64, band 150, XW 1024 / 4096; ms, GCUPS, the
           bound and ns per serial step (the longest problem's steps);
-          then the row forward at bands 700 and 2000, XW 4096
+          then the row forward at bands 300, 511, 700 and 2000, XW 4096,
+          and at band 150 on one 5 Mbp chunk's shape (XW 32768, x_size
+          25000), each with ns a row, bound and multiple
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
@@ -309,6 +316,13 @@ def phase_parity(res):
                          errs)
                 if walk_fe is None:
                     break
+    # the row forward at the first and last band of each of its
+    # instances, and the walk over its words
+    for band in tp.row_boundary_bands():
+        fargs, fe, xw = packed_inputs(tp.boundary_problems(band), band)
+        errs, _ms = kernel_vs_plain("bsw_row", fargs, fe, lmax_of(xw, band),
+                                    True)
+        note_err(res, f"[parity] bounds_band{band} bsw_row edits=True", errs)
     problems = sets[0][1]
     want = tp.oracle(problems, 150)
     for fetch in ("lean", "edits"):
@@ -579,10 +593,14 @@ def phase_full(tmp, res):
             f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024}"
             f" MiB, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for ext in OUTPUTS:
+        ref = (d / f"antidiag{ext}").read_bytes()
+        for path in ("row", "host"):
+            if (d / f"{path}{ext}").read_bytes() != ref:
+                raise AssertionError(f"5 Mbp: {path} wrote another {ext}")
+    log("[full] GAM_KERNEL=row and the host traceback: six outputs "
+        "byte-identical to the default path's")
     want = (d / "antidiag.gam.fasta").read_bytes()
-    for path in ("row", "host"):
-        if (d / f"{path}.gam.fasta").read_bytes() != want:
-            raise AssertionError(f"5 Mbp: {path} wrote another .gam.fasta")
 
     # the kernels against their plain versions on the merges' own chunks:
     # every shape of the anti-diagonal path, the row path's smallest batch
@@ -1010,13 +1028,17 @@ def phase_dist(tmp, res):
             "wall1": wall1, "wall2": wall2, "ranks": ranks}
 
 
-def timing_problems(xw, band, B=64, seed=11):
+def timing_problems(xw, band, B=64, seed=11, fixed=0):
+    """B problems of x_size in [0.8 xw, xw) (at most: b is a mutated copy
+    of a), or of x_size `fixed` exactly (b topped up with random codes)."""
     rng = np.random.default_rng(seed)
     problems = []
     for _ in range(B):
-        n = int(rng.integers(int(0.8 * xw), xw))
+        n = fixed or int(rng.integers(int(0.8 * xw), xw))
         a = rng.integers(0, 4, size=n + 2 * band).astype(np.uint8)
         b = tp.mutate(rng, a[band:band + n])[:n]
+        if fixed:
+            b = np.concatenate([b, rng.integers(0, 4, n).astype(np.uint8)])[:n]
         problems.append((a, band, len(a) - 1, b, 0, len(b) - 1, False,
                          False))
     return problems
@@ -1121,10 +1143,13 @@ def phase_timing(res, card):
                 + extra)
         res[f"timing_xw{xw}"] = t
         res[f"bound_xw{xw}"] = bounds
-    # the row forward's wide instances (2, 4 lanes a thread) at XW 4096
-    xw = 4096
-    for band in (700, 2000):
-        fargs, _fe, xw_b = packed_inputs(timing_problems(xw, band), band)
+    # the row forward's block kernels at XW 4096 (one lane a thread at
+    # bands 300 and 511, 2 and 4 at 700 and 2000), then its warp kernel
+    # (ten lanes a thread at band 150) on one 5 Mbp chunk's shape
+    for band, xw, fixed in ((300, 4096, 0), (511, 4096, 0), (700, 4096, 0),
+                            (2000, 4096, 0), (150, 32768, 25000)):
+        fargs, _fe, xw_b = packed_inputs(
+            timing_problems(xw, band, fixed=fixed), band)
         if xw_b != xw:
             raise AssertionError(f"timing problems fell in bucket {xw_b}")
         xs = fargs[5]
@@ -1140,8 +1165,8 @@ def phase_timing(res, card):
         log(f"[timing] {card} | B=64 band={band} XW={xw} bsw_row: {ms:.4f} "
             f"ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS, bound {b_ms:.6f} "
             f"ms ({b_by}), {ms / b_ms:.1f}x it, {ms * 1e6 / steps:.1f} "
-            f"ns/step ({steps} steps); plain {t['bsw_row_plain']:.4f} ms")
-        res[f"timing_row_band{band}"] = (ms, b_ms)
+            f"ns/row ({steps} rows); plain {t['bsw_row_plain']:.4f} ms")
+        res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms)
 
 
 def kernels_line(res) -> dict:

@@ -2,34 +2,24 @@
 //
 // Replaces gam_ngs_tpu/ops/bsw_pallas.py::_build_kernel (:48, the exact
 // row body, K3), _build_lean_kernel (:220, the lean suffix, K4) and the
-// two-call driver pallas_forward_raw (:335) in one kernel.  The cell
-// semantics are bsw_ref.fill_matrix (banded_smith_waterman.cc:70-214)
-// with the reference's traceback tie-break stored as 2-bit directions;
-// the per-lane cases and tie-breaks are K3's (:121-198) and K4's
-// (:296-322) as they are written there.
+// two-call driver pallas_forward_raw (:335).  The cell semantics are
+// bsw_ref.fill_matrix (banded_smith_waterman.cc:70-214) with the
+// reference's traceback tie-break stored as 2-bit directions; the
+// per-lane cases and tie-breaks are K3's (:121-198) and K4's (:296-322)
+// as they are written there.
 //
-// One block solves one problem, looping over rows i.  Thread t holds R
-// consecutive band lanes j = t*R .. t*R+R-1 (2*band+1 lanes in all; R = 1
-// up to band 511, 2 up to 1023, 4 up to 2047, 8 up to 4095, so a block
-// never passes 1024 threads).  Cell (i, j) sits at A position
-// begin_a - band + i + j; its diag and up neighbours are lanes j and j+1
-// of row i-1, read from shared memory after a barrier.  The left
+// A problem loops over rows i; row i has 2*band+1 band lanes j, and cell
+// (i, j) sits at A position begin_a - band + i + j (a window code i + j).
+// Its diag and up neighbours are lanes j and j+1 of row i-1.  The left
 // neighbour (i, j-1) is in the same row:
 //   row[j] = max(c[j], s[j] + row[j-1])
 // with c the cell's best diag/up/fresh value and s its left gap (GAP, 0
 // on row 0, or NEG where the left move is barred).  The maps
 // f_j(x) = max(c_j, s_j + x) compose associatively,
 //   (c_l, s_l) then (c, s) = (max(c, s + c_l), s_l + s),
-// so a row is an inclusive scan.  A thread first composes its own R maps
-// in order; warp shuffles scan those totals within 32 threads, then the
-// warp totals in shared memory are scanned again by shuffles in every
-// warp.  A thread then applies the composition of every thread before it
-// to its R lanes in order.  Every composition clamps at NEG: blocked
-// lanes carry slope NEG, and unclamped sums of them would wrap int32.
-// R = 1 has a kernel of its own (row_forward_kernel), whose inclusive
-// scan is the row itself: the R-lane template run at R = 1 took 14% more
-// time at band 150 (tools/kernel_ab.py --row, B=64, XW 4096: 2.84 vs
-// 2.45-2.50 ms on an H100, 700 W), and the default band is 150.
+// so a row is an inclusive scan.  Every composition clamps at NEG:
+// blocked lanes carry slope NEG, and unclamped sums of them would wrap
+// int32.
 //
 // Rows i <= band, or every row when begin_a < 0 (the reference's tail
 // windows), run the exact body: row-0 starts, pos == 0 fresh and forced
@@ -40,6 +30,63 @@
 // 0 in the row.  A problem stops at its x_size rounded up to 16 rows; the
 // wrapper zero-fills the outputs, so unwritten words read 0.
 //
+// Band <= 159: row_warp_kernel<R>, one warp per problem and one problem
+// a block (a 64-problem chunk spreads over 64 of the 132 SMs, and the
+// engine's 4 streams put a round's other chunks on the rest; two a block
+// would leave a chunk on 32).  Thread t holds the R consecutive lanes
+// j = t*R .. t*R+R-1 in registers, R = ceil((2*band+1)/32) rounded up to
+// an instantiated width (10 at band 150); lanes past 2*band are padding
+// that no band lane reads.  The previous row stays in registers: lane j's
+// diag is its own previous value, its up the previous value of lane j+1,
+// in the thread but for the top lane, which takes thread t+1's bottom
+// lane by one shuffle; lane 2*band's up gap is NEG, so its up is never
+// taken.  No barrier and no shared row sit in the row loop.
+//
+// Row 0 runs every case of the reference per lane, with the (c, s) scan:
+// the thread's R maps in order, a 5-level shuffle scan of the thread
+// totals, one shuffle for the exclusive prefix, the lanes again.  Every
+// later row runs the lean recurrence, whose scan is a prefix max: the
+// thread's lane maxima, an exclusive 6-shuffle max scan, the lanes.  For
+// a row i >= 1 the exact body differs from the lean one only by lane
+// position pos: the lanes at pos < 0 form a prefix that holds 0 and that
+// the pos == 0 lane, which starts afresh, never lets through; the lanes
+// at pos >= a_len form a suffix that holds 0 and that reaches no valid
+// lane.  So a block of 16 rows that holds such a lane (rows up to
+// band - begin_a, or from a_len - begin_a - band), the last row or a
+// pos == end_a cell runs a checked copy with those cases and the records
+// per lane; every other block runs without them.
+//
+// The rows run in blocks of 16, unrolled: at the start of a block a
+// thread reads the R+15 a codes of its lanes (loaded a block ahead) and
+// looks up each one's score vector, the scores against b codes 0-7,
+// 4 bits each above the lowest score (the engine's b codes are 0-4); a
+// cell's score is then a shift and a mask.
+//
+// Widths R: 1, 2, 4, 6, 8, 10 (up to bands 15, 31, 63, 95, 127, 159):
+// steps of 2 keep the default band (150, R = 10) and its neighbours
+// within one lane of the least R.  A thread keeps each lane's diag and
+// up across the scan and takes its lane maximum by a tree; ptxas spills
+// nothing (80 to 255 registers).
+//
+// Band 160 .. 511: row_forward_kernel, one block per problem and one
+// lane a thread, the previous row in shared memory, the warp totals
+// scanned again across the block, two barriers a row (a kernel of its
+// own: the R-lane template below run at one lane took 14% more time at
+// band 150, B=64, XW 4096, 2.84 against 2.45-2.50 ms).  Wider warp
+// instances spilled at 255 registers, so this kernel keeps those bands
+// (B=64, XW 4096, tools/kernel_ab.py --row on an NVIDIA H100 80GB HBM3,
+// 700.00 W; warp ms, then this kernel's, from one call each): R = 12,
+// 56 bytes spilled, band 160 1.4518, 1.4331 against 2.4538, 2.4545 and
+// band 191 1.4133, 1.4285 against 2.4572, 2.4782; R = 16, 92 bytes,
+// band 192 1.8755, 1.8986 against 2.6128, 2.6141 and band 255 2.0725,
+// 2.0564 against 2.8847, 2.8724; R = 24, 120 bytes, band 256 3.0676,
+// 3.0572 against 2.8840, 2.8575 and band 300 3.1422, 3.1561 against
+// 2.9382, 2.9346; R = 32, 784 bytes, band 511 7.0884, 7.1411 against
+// 4.0165, 4.0759.
+// Band 512 .. 4095: row_forward_lanes_kernel<R>, the same with R = 2, 4
+// or 8 lanes a thread (up to band 1023, 2047, 4095), so a block never
+// passes 1024 threads.
+//
 // Outputs:
 //   dirs      (B, XW/16, 2*band+1) int32: row i of lane j at word i/16,
 //             bits 2*(i & 15)
@@ -48,10 +95,11 @@
 //             of row end_a - begin_a + band - j
 //
 // Bound on this card: the dependent chain of a row, not bytes (the
-// directions are 0.25 B per cell): two barriers, two shuffle scans of
-// five levels and about 40 int32 operations per lane a thread holds, per
-// row.  One block of up to 1024 threads per problem; the engine's
-// max_batch of 64 fills at most 64 of the 132 SMs.
+// directions are 0.25 B per cell).  In the warp kernel a lean row costs
+// about 14 int32 operations per lane a thread holds (the lanes are
+// independent, so they issue back to back) and a chain of 7 shuffles
+// (the up lane, the scan's 6); one warp alone on its scheduler is
+// latency-bound at that chain (~300 ns a row at R = 10).
 //
 // TPU artefacts left behind: the 128-lane YP padding of the band, the
 // aligned-superset lane_window + pltpu.roll character loads, the 0/1
@@ -65,6 +113,7 @@
 namespace {
 
 constexpr int kDiag = 0, kUp = 1, kLeft = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 // bsw_ref's scoring, passed in by the wrapper: SCORING_MATRIX's match,
 // mismatch, N-N and N-other scores, GAP, FORCE_MAXGAP_LEN, and NEG (a
@@ -83,6 +132,337 @@ __device__ __forceinline__ int base_score(int ac, int bc, const Scoring& s) {
   if (an || bn) return s.nx;
   return ac == bc ? s.match : s.mismatch;
 }
+
+// ---- band <= 159: a warp per problem --------------------------------------
+
+// Per-thread constants of one problem.
+template <int R>
+struct WarpLanes {
+  int t, j0, gj0;  // thread, its first lane, GAP * j0
+  int ug[R];       // up gap of each lane: GAP, or NEG on lane 2*band
+  int ba, band, al, xs1, jdb, YS;
+  bool fs;
+};
+
+// Row 0: every case of the reference per lane.  prev is all 0 there, so
+// a lane's diag is its score.  score(k): the cell score of lane k.
+template <int R, typename Score>
+__device__ __forceinline__ void first_row(int (&prev)[R],
+                                          unsigned (&packed)[R], Score score,
+                                          const WarpLanes<R>& L,
+                                          const Scoring& s, int* lr,
+                                          int* dg) {
+  const int NEG = s.neg, ymax = L.YS - 1, pb = L.ba - L.band + L.j0;
+  // each lane's map (c, s) before the left dependency: c, and s as a lane
+  // mask (0; NEG otherwise); its score + 8, 4 bits a lane
+  int c[R];
+  unsigned sc_pk[(R + 7) / 8];
+  unsigned sl_zero = 0, vmask = 0;
+#pragma unroll
+  for (int w = 0; w < (R + 7) / 8; ++w) sc_pk[w] = 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int j = L.j0 + k;
+    const bool in_band = j < L.YS;
+    const int sc = in_band ? score(k) : 0;
+    sc_pk[k >> 3] |= (unsigned)(sc + 8) << (4 * (k & 7));
+    const int pos = in_band ? pb + k : 0;
+    const bool valid_pos = pos >= 0 && pos < L.al;
+    const bool cond_b = L.fs && pos > s.force_max_gap && pos < L.al;
+    bool v = (valid_pos && (!L.fs || pos <= s.force_max_gap)) || cond_b;
+    const int base = cond_b ? sc : max(sc, s.gap);
+    sl_zero |= (unsigned)(v && pos > 0 && j != 0) << k;
+    v = v && in_band;
+    c[k] = v ? base : 0;
+    vmask |= (unsigned)v << k;
+  }
+  const auto sl = [&](int k) { return ((sl_zero >> k) & 1u) ? 0 : NEG; };
+  // this thread's R maps composed in order, then an inclusive scan of
+  // the thread totals
+  int C = c[0], S = sl(0);
+#pragma unroll
+  for (int k = 1; k < R; ++k) {
+    C = max(c[k], max(sl(k) + C, NEG));
+    S = max(S + sl(k), NEG);
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int c_l = __shfl_up_sync(kFull, C, d);
+    const int s_l = __shfl_up_sync(kFull, S, d);
+    if (L.t >= d) {
+      C = max(C, max(S + c_l, NEG));
+      S = max(s_l + S, NEG);
+    }
+  }
+  // the row at lane j0 - 1: the threads before this one, composed
+  int x = __shfl_up_sync(kFull, C, 1);
+  if (L.t == 0) x = NEG;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int j = L.j0 + k;
+    const bool in_band = j < L.YS, last = j == ymax, first = j == 0;
+    const bool mid = !first && !last;
+    x = max(c[k], max(sl(k) + x, NEG));
+    const int row = ((vmask >> k) & 1u) ? x : 0;
+    const int sc = (int)((sc_pk[k >> 3] >> (4 * (k & 7))) & 15u) - 8;
+    const int pos = in_band ? pb + k : 0;
+    int d;
+    if (pos == 0) {
+      d = row == sc ? kDiag : ((last || row == s.gap) ? kLeft : kUp);
+    } else {
+      const int up_t =
+          L.fs ? ((pos >= 0 && pos <= s.force_max_gap) ? s.gap : NEG) : s.gap;
+      d = row == sc ? kDiag
+                    : ((mid && row == up_t) ? kUp
+                                            : (mid || last ? kLeft : kUp));
+    }
+    packed[k] |= (unsigned)d;
+    if (in_band) {
+      if (j == L.jdb) dg[j] = row;
+      if (L.xs1 == 0) lr[j] = row;
+    }
+    prev[k] = row;
+  }
+}
+
+// Row i >= 1 (r = i & 15): each lane's c = max(diag, up), and the row is
+// the prefix max of c - GAP*j plus GAP*j.  The thread takes the max of
+// its lanes (a tree) and hands it to an exclusive max scan over the
+// threads, relative to j = 0; meanwhile it runs its lanes' prefix,
+// relative to its first lane j0; then each lane applies both.  Lane
+// 2*band's up gap is NEG, so its up is never taken.
+// CHECK adds the reference's cases by lane position pos = begin_a - band
+// + i + j: lanes at pos < 0 (a prefix of the row) hold 0 and are barred
+// from the scan; the pos == 0 lane starts afresh (with the gap within
+// FORCE_MAXGAP_LEN of a force_start problem's start or without one, else
+// forced), so no lane before it reaches it; lanes at pos >= a_len (a
+// suffix) hold 0; lane 0 has no left move; and the last row and the
+// pos == end_a cell are recorded.  Rows without CHECK hold none of these
+// (every lane at 0 < pos < a_len, no record).  score(k): the cell score
+// of lane k.
+template <int R, bool CHECK, typename Score>
+__device__ __forceinline__ void lean_row(int (&prev)[R],
+                                         unsigned (&packed)[R], Score score,
+                                         const WarpLanes<R>& L,
+                                         const Scoring& s, int i, int r,
+                                         int* lr, int* dg) {
+  const int nb = __shfl_down_sync(kFull, prev[0], 1);  // lane j0+R, row i-1
+  const int pb = L.ba - L.band + i + L.j0;  // pos of lane k: pb + k
+  const bool fresh = !L.fs || i <= s.force_max_gap;
+  // each lane's diag and up, kept across the scan
+  int dv[R], uv[R], pl[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int dk = prev[k] + score(k);
+    const int uk = (k + 1 < R ? prev[k + 1] : nb) + L.ug[k];
+    dv[k] = dk;
+    uv[k] = uk;
+    int base = max(dk, uk);
+    if (CHECK) {
+      const int pos = pb + k;
+      if (pos == 0) {
+        const int sc = dk - prev[k];
+        base = fresh ? max(max(sc, uk), s.gap) : max(sc, uk);
+      }
+      if (pos < 0) base = s.neg;
+    }
+    pl[k] = base - s.gap * k;
+  }
+  // the thread's max by a tree (a shorter chain than the prefix), then
+  // the max of c - GAP*j over the threads before this one
+  int m[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) m[k] = pl[k];
+#pragma unroll
+  for (int w = 1; w < R; w <<= 1) {
+#pragma unroll
+    for (int k = 0; k + w < R; k += 2 * w) m[k] = max(m[k], m[k + w]);
+  }
+  int y = __shfl_up_sync(kFull, m[0] - L.gj0, 1);
+  if (L.t == 0) y = s.neg;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) y = max(y, __shfl_up_sync(kFull, y, d));
+  const int x = y + L.gj0;
+#pragma unroll
+  for (int k = 1; k < R; ++k) pl[k] = max(pl[k - 1], pl[k]);
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int dk = dv[k], uk = uv[k];
+    int row = max(x, pl[k]) + s.gap * k;
+    int d;
+    if (CHECK) {
+      const int pos = pb + k, j = L.j0 + k;
+      if ((unsigned)pos >= (unsigned)L.al) row = 0;  // pos < 0, >= a_len
+      if (pos == 0) {
+        const int sc = dk - prev[k];
+        d = row == sc ? kDiag
+                      : ((j == L.YS - 1 || (row == s.gap && fresh)) ? kLeft
+                                                                    : kUp);
+      } else {
+        d = row == dk ? kDiag : (row == uk ? kUp : kLeft);
+        // an invalid lane 0 (not also lane 2*band) takes up, not left
+        if (k == 0 && L.t == 0 && L.YS > 1 && d == kLeft) d = kUp;
+      }
+      if (j < L.YS) {
+        if (j == L.jdb - i) dg[j] = row;
+        if (i == L.xs1) lr[j] = row;
+      }
+    } else {
+      d = row == dk ? kDiag : (row == uk ? kUp : kLeft);
+    }
+    packed[k] |= (unsigned)d << (2 * r);
+    prev[k] = row;
+  }
+}
+
+// Rows i0 .. i0+15, unrolled (row 0 runs first_row).  va: the score
+// vectors of the a codes i0 + j0 .. i0 + j0 + R + 14; b0, b1: the
+// block's 16 b codes.
+template <int R, bool CHECK>
+__device__ __forceinline__ void row_block(int (&prev)[R],
+                                          unsigned (&packed)[R],
+                                          const uint32_t (&va)[R + 15],
+                                          uint32_t b0, uint32_t b1, int lo,
+                                          const WarpLanes<R>& L,
+                                          const Scoring& s, int i0, int* lr,
+                                          int* dg) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int sh = (int)((((r < 8 ? b0 : b1) >> (4 * (r & 7))) & 15u) << 2);
+    const auto score = [&](int k) {
+      return (int)((va[r + k] >> sh) & 15u) + lo;
+    };
+    if (CHECK && r == 0 && i0 == 0)  // block 0 is always checked
+      first_row<R>(prev, packed, score, L, s, lr, dg);
+    else
+      lean_row<R, CHECK>(prev, packed, score, L, s, i0 + r, r, lr, dg);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(32, 1) row_warp_kernel(
+    const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
+    const int* __restrict__ begin_a, const int* __restrict__ end_a,
+    const int* __restrict__ a_len, const int* __restrict__ x_size,
+    const int* __restrict__ force_start, int aw, int xw, int band, Scoring s,
+    int* __restrict__ dirs, int* __restrict__ last_row,
+    int* __restrict__ diag) {
+  constexpr int NA = R + 15;          // a codes of a thread's 16 rows
+  constexpr int AWDS = (NA + 7) / 8;  // their words, aligned
+  __shared__ uint32_t vec_s[16];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const int lo = min(min(s.match, s.mismatch), min(s.nn, s.nx));
+  if (t < 16) {
+    // score vector of a code: (score(a, b) - lo) << 4b for b codes 0-7
+    uint32_t v = 0;
+    for (int bc = 0; bc < 8; ++bc)
+      v |= (uint32_t)(base_score(t, bc, s) - lo) << (4 * bc);
+    vec_s[t] = v;
+  }
+  __syncwarp();
+
+  const int YS = 2 * band + 1, ymax = 2 * band;
+  WarpLanes<R> L;
+  L.t = t;
+  L.j0 = t * R;
+  L.gj0 = s.gap * L.j0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) L.ug[k] = L.j0 + k == ymax ? s.neg : s.gap;
+  L.ba = begin_a[b];
+  L.band = band;
+  L.al = a_len[b];
+  const int xs = x_size[b];
+  L.xs1 = xs - 1;
+  L.jdb = end_a[b] - L.ba + band;  // diag lane of row i: jdb - i
+  L.YS = YS;
+  L.fs = force_start[b] != 0;
+
+  // whole words: a rows are 16-byte chunks, b rows XW/2 bytes, XW % 16 == 0
+  const uint32_t* a32 =
+      reinterpret_cast<const uint32_t*>(a_pk + (size_t)b * (aw / 2));
+  const uint32_t* b32 =
+      reinterpret_cast<const uint32_t*>(b_pk + (size_t)b * (xw / 2));
+  int* dir_out = dirs + (size_t)b * (xw / 16) * YS;
+  int* lr = last_row + (size_t)b * YS;
+  int* dg = diag + (size_t)b * YS;
+
+  const int stop = xs <= 0 ? 0 : min(xw, (xs + 15) / 16 * 16);
+  const int nblk = stop >> 4;
+  // rows up to pos0_rows hold a lane at pos <= 0; rows from ilim a lane
+  // at pos >= a_len
+  const int pos0_rows = band - L.ba, ilim = L.al - L.ba - band;
+  // a codes of block n start at 16n + j0: the word offset and the in-word
+  // shift of the thread's first code are loop invariant
+  const int nwa = aw >> 3, wa0 = L.j0 >> 3, sha = 4 * (L.j0 & 7);
+  const auto load_words = [&](int n, uint32_t (&w)[AWDS + 1],
+                              uint32_t& w0, uint32_t& w1) {
+#pragma unroll
+    for (int q = 0; q <= AWDS; ++q) {
+      const int wi = 2 * n + wa0 + q;  // padding lanes read past the row
+      w[q] = wi < nwa ? __ldg(a32 + wi) : 0xffffffffu;
+    }
+    w0 = __ldg(b32 + 2 * n);
+    w1 = __ldg(b32 + 2 * n + 1);
+  };
+
+  int prev[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) prev[k] = 0;
+  uint32_t wa[AWDS + 1], wb0 = 0, wb1 = 0;
+  if (nblk > 0) load_words(0, wa, wb0, wb1);
+  for (int n = 0; n < nblk; ++n) {
+    const int i0 = 16 * n;
+    uint32_t nxt[AWDS + 1], nb0 = 0, nb1 = 0;
+    if (n + 1 < nblk) load_words(n + 1, nxt, nb0, nb1);  // a block ahead
+    uint32_t va[NA];
+    {
+      uint32_t al[AWDS];
+#pragma unroll
+      for (int q = 0; q < AWDS; ++q)
+        al[q] = __funnelshift_r(wa[q], wa[q + 1], sha);
+#pragma unroll
+      for (int m = 0; m < NA; ++m)
+        va[m] = vec_s[(al[m >> 3] >> (4 * (m & 7))) & 15u];
+    }
+    unsigned packed[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) packed[k] = 0;
+    // a lane at pos <= 0 or >= a_len, the last row, or a pos == end_a
+    // cell in this block?
+    const bool check = n == 0 || i0 <= pos0_rows || i0 + 15 >= ilim ||
+                       (L.xs1 >= i0 && L.xs1 <= i0 + 15) ||
+                       (L.jdb >= i0 && L.jdb - ymax <= i0 + 15);
+    if (check)
+      row_block<R, true>(prev, packed, va, wb0, wb1, lo, L, s, i0, lr, dg);
+    else
+      row_block<R, false>(prev, packed, va, wb0, wb1, lo, L, s, i0, lr, dg);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (L.j0 + k < YS) dir_out[(size_t)n * YS + L.j0 + k] = (int)packed[k];
+    if (n + 1 < nblk) {
+#pragma unroll
+      for (int q = 0; q <= AWDS; ++q) wa[q] = nxt[q];
+      wb0 = nb0;
+      wb1 = nb1;
+    }
+  }
+}
+
+template <int R>
+int launch_warp(const void* a_pk, const void* b_pk, const void* begin_a,
+                const void* end_a, const void* a_len, const void* x_size,
+                const void* force_start, int B, int aw, int xw, int band,
+                const Scoring& s, void* dirs, void* last_row, void* diag,
+                cudaStream_t stream) {
+  row_warp_kernel<R><<<B, 32, 0, stream>>>(
+      (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
+      (const int*)end_a, (const int*)a_len, (const int*)x_size,
+      (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,
+      (int*)diag);
+  return (int)cudaGetLastError();
+}
+
+// ---- band 160 .. 4095: a block per problem --------------------------------
 
 // one band lane a thread (band <= 511)
 __global__ void row_forward_kernel(
@@ -472,6 +852,22 @@ extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
   if (band < 0 || band > 4095) return (int)cudaErrorInvalidValue;
   const int YS = 2 * band + 1;
   const Scoring s{match, mismatch, nn, nx, gap, force_max_gap, neg};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (band <= 159) {
+#define GAM_WARP(RR)                                                       \
+  return launch_warp<RR>(a_pk, b_pk, begin_a, end_a, a_len, x_size,        \
+                         force_start, B, aw, xw, band, s, dirs, last_row,  \
+                         diag, st)
+    // the narrowest instantiated R with 32 * R >= 2 * band + 1
+    const int need = (YS + 31) / 32;
+    if (need <= 1) GAM_WARP(1);
+    if (need <= 2) GAM_WARP(2);
+    if (need <= 4) GAM_WARP(4);
+    if (need <= 6) GAM_WARP(6);
+    if (need <= 8) GAM_WARP(8);
+    GAM_WARP(10);
+#undef GAM_WARP
+  }
   // lanes a thread: the fewest that keep the block at 1024 threads
   const int R = band <= 511 ? 1 : band <= 1023 ? 2 : band <= 2047 ? 4 : 8;
   const int threads = ((YS + R - 1) / R + 31) / 32 * 32;
@@ -480,7 +876,7 @@ extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
                 : R == 2 ? row_forward_lanes_kernel<2>
                 : R == 4 ? row_forward_lanes_kernel<4>
                          : row_forward_lanes_kernel<8>;
-  kernel<<<B, threads, shmem, (cudaStream_t)stream>>>(
+  kernel<<<B, threads, shmem, st>>>(
       (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
       (const int*)end_a, (const int*)a_len, (const int*)x_size,
       (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,

@@ -38,6 +38,12 @@ from .bsw_ref import FORCE_MAXGAP_LEN, GAP
 
 launches = 0  # kernel launches by forward_row (CPU runs not counted)
 MAX_BAND = 4095  # 2 * band + 1 lanes, at most 8 a thread, 1024 threads
+# csrc/bsw_row.cu's warp-per-problem instances: band lanes a thread, R
+# taking the bands whose 2*band+1 lanes need more than the width before
+# it and at most 32*R (the launcher's choice, up to band 159; bands
+# 160.. run a block of 1, 2, 4 or 8 lanes a thread up to band 511, 1023,
+# 2047, 4095)
+WARP_WIDTHS = (1, 2, 4, 6, 8, 10)
 
 _fn = None
 

@@ -50,6 +50,12 @@ PROBLEM_SETS = {
     "ties_band30": (30, tp.tie_problems),
     "ties_band150": (150, tp.tie_problems),
 }
+# the first and last band of each warp instance of the row forward and
+# of its block kernel of one lane a thread (160-511), and 512 (ragged and
+# soak problems, rows past the exact ones included)
+PROBLEM_SETS |= {f"bounds_band{band}": (band, lambda band=band:
+                                        tp.boundary_problems(band))
+                 for band in tp.row_boundary_bands()}
 # the anti-diagonal forward's four warps per problem; the row forward's
 # two lanes a thread
 WIDE_SETS = {

@@ -145,6 +145,19 @@ def test_forward_row_wide_bands_match_fill_matrix(band, seed, max_len):
     assert checked > 1000 and (band > 1000 or lean > 10_000)
 
 
+# bands where csrc/bsw_row.cu's launcher changes instance: a warp of one
+# lane a thread up to band 15, two from 16, ten up to 159; a block of one
+# lane a thread from 160 up to 511
+@pytest.mark.parametrize("band", [15, 16, 159, 160, 511])
+def test_forward_row_matches_fill_matrix_at_instance_bands(band):
+    """Ragged x_size from 1 row to the window (begin_a < 0 tails, N,
+    force_start and force_end) and the edge cases (force_end underflow
+    windows of 2-12 rows), against fill_matrix cell for cell."""
+    problems = tp.ragged_problems(band, seed=band) + tp.edge_problems()
+    checked, _lean = check_row_cells(problems, band)
+    assert checked > 10_000
+
+
 def test_forward_row_band300_lean_rows_match_fill_matrix():
     """Band 300, 450-700 rows: mostly the lean body (rows > 300)."""
     checked, lean = check_row_cells(long_band300_problems(), 300)
@@ -289,3 +302,86 @@ def test_row_merges_match_jax(tmp_path, corpus, monkeypatch):
         for ext in OUTPUTS:
             assert (tmp_path / f"{tag}{ext}").read_bytes() == \
                 (tmp_path / f"jax{ext}").read_bytes(), (tag, ext)
+
+
+WARP_WIDTHS = bsw_row.WARP_WIDTHS  # row_warp_kernel<R>'s band lanes a thread
+NEG, GAP = bsw_row.NEG, bsw_row.GAP
+
+
+def warp_scan_model(c, s, R, lean, rng):
+    """row_warp_kernel's row scan in int32 numpy, step for step: 32
+    threads of R consecutive lanes; lanes past the row are padding, here
+    random, since no band lane may read them.  Exact (maps (c, s)): each
+    thread composes its R maps in order, a 5-level shuffle scan of the
+    thread totals (thread t takes thread t-d's partial when t >= d), the
+    shift to thread t-1's total (thread 0 starts at NEG), then the lanes
+    in order; every composition clamps at NEG.  Lean (c only): each
+    thread's prefix max of c - GAP*k over its lanes k, a max scan of
+    those totals less GAP*j0 (j0 = t*R) shifted by one thread, which a
+    shuffle returns unchanged below lane d, then each lane's
+    max(that + GAP*j0, prefix) + GAP*k.  c, s: (B, n) int32, n <= 32*R."""
+    B, n = c.shape
+    W = 32 * R
+    i32 = np.int32
+    cc = np.concatenate([c, rng.integers(-500, 500, (B, W - n))],
+                        axis=1).astype(i32).reshape(B, 32, R)
+    k = np.arange(R, dtype=i32)
+    j0 = np.arange(32, dtype=i32) * R
+    if lean:
+        pl = np.maximum.accumulate(cc - i32(GAP) * k, axis=2)
+        y = np.full((B, 32), NEG, i32)
+        y[:, 1:] = pl[:, :-1, R - 1] - i32(GAP) * j0[:-1]
+        for d in (1, 2, 4, 8, 16):
+            up = y.copy()
+            up[:, d:] = y[:, :-d]
+            y = np.maximum(y, up)
+        x = y + i32(GAP) * j0
+        return (np.maximum(x[:, :, None], pl)
+                + i32(GAP) * k).reshape(B, W)[:, :n]
+    pad_s = rng.choice(np.array([0, GAP, NEG], i32), (B, W - n))
+    ss = np.concatenate([s, pad_s], axis=1).astype(i32).reshape(B, 32, R)
+    C, S = cc[:, :, 0].copy(), ss[:, :, 0].copy()
+    for q in range(1, R):
+        C = np.maximum(cc[:, :, q], np.maximum(ss[:, :, q] + C, i32(NEG)))
+        S = np.maximum(S + ss[:, :, q], i32(NEG))
+    t = np.arange(32)
+    for d in (1, 2, 4, 8, 16):
+        c_l, s_l = C.copy(), S.copy()
+        c_l[:, d:], s_l[:, d:] = C[:, :-d], S[:, :-d]
+        on = t >= d
+        C, S = (np.where(on, np.maximum(C, np.maximum(S + c_l, i32(NEG))), C),
+                np.where(on, np.maximum(s_l + S, i32(NEG)), S))
+    x = np.full((B, 32), NEG, i32)
+    x[:, 1:] = C[:, :-1]
+    row = np.empty_like(cc)
+    for q in range(R):
+        x = np.maximum(cc[:, :, q], np.maximum(ss[:, :, q] + x, i32(NEG)))
+        row[:, :, q] = x
+    return row.reshape(B, W)[:, :n]
+
+
+@pytest.mark.parametrize("R", WARP_WIDTHS)
+def test_warp_scan_model_matches_plain_scans(R):
+    """The numpy model of the warp kernel's exact and lean row scans
+    against the plain version's _scan_exact and _scan_lean, at the
+    narrowest and widest row width (2*band+1 lanes) each instance takes,
+    on random scores with runs of NEG slopes."""
+    rng = np.random.default_rng(R)
+    before = (0,) + WARP_WIDTHS
+    lo = 32 * before[WARP_WIDTHS.index(R)] + 1  # odd: 2*band+1
+    hi = 32 * R - 1
+    for n in sorted({lo, (lo + hi) // 2 | 1, hi}):
+        B = 48
+        c = rng.integers(-3000, 3000, (B, n)).astype(np.int32)
+        c[:4] = 0  # invalid lanes hold 0
+        s = rng.choice(np.array([0, GAP, GAP, GAP, NEG], np.int32), (B, n))
+        for row in range(B):  # runs of blocked lanes, some the whole row
+            start = int(rng.integers(0, n))
+            s[row, start:start + int(rng.integers(1, n + 1))] = NEG
+        s[-1] = NEG
+        want = bsw_row._scan_exact(torch.from_numpy(c), torch.from_numpy(s))
+        got = warp_scan_model(c, s, R, False, rng)
+        assert (got == want.numpy()).all(), (R, n)
+        want = bsw_row._scan_lean(torch.from_numpy(c))
+        got = warp_scan_model(c, None, R, True, rng)
+        assert (got == want.numpy()).all(), (R, n)

@@ -133,6 +133,26 @@ def ragged_problems(band: int, seed: int = 13):
     return problems
 
 
+def row_boundary_bands() -> list[int]:
+    """The first and last band of each warp instance of the row forward
+    (bsw_row.WARP_WIDTHS: 2*band+1 <= 32*R), then of its block kernels
+    of one and two lanes a thread: 15, 16, 31, 32, ..., 159, 160, 511,
+    512."""
+    from gam_ngs_tpu_torch.ops.bsw_row import WARP_WIDTHS
+
+    last = [(32 * r - 1) // 2 for r in WARP_WIDTHS] + [511]
+    return sorted({b for hi in last for b in (hi, hi + 1)})
+
+
+def boundary_problems(band: int):
+    """A parity set at one band: ragged x_size from 1 row to the window
+    (begin_a < 0 tails, N, force_start, force_end) and six soak problems
+    of up to 3*band+200 rows, so that rows past the exact ones (i >
+    band) run too."""
+    return (ragged_problems(band, seed=band)
+            + soak_problems(6, seed=band, max_len=3 * band + 200))
+
+
 def tie_problems(seed: int = 17):
     """Problems whose find-max candidates tie: homopolymer (all A, all
     N) and period-4 sequences aligned to themselves, where every band

@@ -21,9 +21,11 @@ operations from the recurrence, or bytes), and the multiple.  Prints
 one line a shape and kernel, and one JSON object last.
 
 --row: DIR holds the other version's bsw_row.cu (same C entry point);
-both row forwards run B=64 problems at band 150 in windows XW 1024 and
+both row forwards run B=64 problems at band 150 in windows XW 1024, 4096
+and 32768 (x_size 25000), and at bands 300 and 511 (--bands) in XW
 4096, timed base, this, this, base, their outputs held equal bit for
-bit.
+bit; each time with its ns a row (the longest problem's rows), bound
+and multiple.
 
 Imports nothing of JAX and nothing of gam_ngs_tpu.
 """
@@ -88,23 +90,24 @@ def entry_points(lib):
     return fwd, wlk
 
 
-def problems(xw: int, B: int = 64, seed: int = 11, fixed: int = 0):
+def problems(xw: int, B: int = 64, seed: int = 11, fixed: int = 0,
+             band: int = BAND):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(B):
         n = fixed or int(rng.integers(int(0.8 * xw), xw))
-        a = rng.integers(0, 4, size=n + 2 * BAND).astype(np.uint8)
-        b = tp.mutate(rng, a[BAND:BAND + n])
+        a = rng.integers(0, 4, size=n + 2 * band).astype(np.uint8)
+        b = tp.mutate(rng, a[band:band + n])
         b = np.concatenate([b, rng.integers(0, 4, n).astype(np.uint8)])[:n]
-        out.append((a, BAND, len(a) - 1, b, 0, n - 1, False, False))
+        out.append((a, band, len(a) - 1, b, 0, n - 1, False, False))
     return out
 
 
 class Shape:
     """One packed batch on the card and the calls of both entry points."""
 
-    def __init__(self, probs):
-        a_pk, b_pk, scal, _preps, self.xw = tp.pack_problems(probs, BAND)
+    def __init__(self, probs, band: int = BAND):
+        a_pk, b_pk, scal, _preps, self.xw = tp.pack_problems(probs, band)
         self.a, self.b, s = (torch.from_numpy(np.ascontiguousarray(v)).to(DEV)
                              for v in (a_pk, b_pk, scal))
         self.ba, self.ea, self.al, self.xs, self.fs, self.fe = s.unbind(0)
@@ -142,7 +145,8 @@ class Shape:
         return summary
 
 
-def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
+def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
+           bands: list[int]) -> dict:
     """This tree's bsw_row_forward against DIR's, in turns."""
     from gam_ngs_tpu_torch.ops import bsw_row
 
@@ -155,9 +159,11 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
         base = lib.bsw_row_forward
         base.argtypes, base.restype = this.argtypes, this.restype
         res = {"card": card, "shapes": {}}
-        for xw in (1024, 4096):
-            sh = Shape(problems(xw))
-            ys = 2 * BAND + 1
+        for band, xw, fixed in ((BAND, 1024, 0), (BAND, 4096, 0),
+                                (BAND, 32768, 25000),
+                                *((b, 4096, 0) for b in bands)):
+            sh = Shape(problems(xw, fixed=fixed, band=band), band)
+            ys = 2 * band + 1
 
             def run(fn):
                 out = [torch.zeros(shape, dtype=torch.int32, device=DEV)
@@ -165,7 +171,7 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
                                      (sh.B, ys))]
                 err = fn(*(v.data_ptr() for v in (
                     sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs)), sh.B,
-                    2 * sh.a.shape[1], sh.xw, BAND, MATCH_S, MISMATCH_S,
+                    2 * sh.a.shape[1], sh.xw, band, MATCH_S, MISMATCH_S,
                     NN_S, NX_S, GAP, FORCE_MAXGAP_LEN, bsw_row.NEG,
                     *(v.data_ptr() for v in out), sh.stream)
                 if err:
@@ -176,8 +182,9 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
             torch.cuda.synchronize()
             if any(not torch.equal(x, y)
                    for x, y in zip(outs["base"], outs["this"])):
-                raise AssertionError(f"XW {xw}: the row forwards disagree")
-            fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, BAND)
+                raise AssertionError(f"band {band} XW {xw}: the row "
+                                     f"forwards disagree")
+            fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, band)
             b_ms, b_by = chip_smoke.bound("bsw_row", fargs, None,
                                           outs["this"], ops_rate)
             n = int(((sh.xs + 15) // 16 * 16).max())
@@ -187,13 +194,13 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float) -> dict:
                 ms.setdefault(turn, []).append(
                     launch_ms(lambda: run(fn), reps))
             for turn, v in ms.items():
-                print(f"[ab] {card} | B={sh.B} band={BAND} XW={xw} "
+                print(f"[ab] {card} | B={sh.B} band={band} XW={xw} "
                       f"bsw_row_{turn}: ms {', '.join(f'{t:.4f}' for t in v)}"
                       f"; {statistics.mean(v) * 1e6 / n:.1f} ns/row over {n} "
                       f"rows; bound {b_ms:.6f} ms ({b_by}), "
                       f"{statistics.mean(v) / b_ms:.1f}x it", flush=True)
-            res["shapes"][str(xw)] = {"ms": ms, "rows": n, "bound_ms": b_ms,
-                                      "bound_by": b_by}
+            res["shapes"][f"band{band}_xw{xw}"] = {
+                "ms": ms, "rows": n, "bound_ms": b_ms, "bound_by": b_by}
     return res
 
 
@@ -216,6 +223,8 @@ def main() -> int:
     ap.add_argument("--base", required=True)
     ap.add_argument("--row", action="store_true",
                     help="time the row-form forward (DIR/bsw_row.cu)")
+    ap.add_argument("--bands", default="300,511",
+                    help="--row: the bands timed at XW 4096 besides 150")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -231,10 +240,11 @@ def main() -> int:
     if args.row:
         _build.library()
         for line in _build.build_log.splitlines():
-            if "row_forward" in line or "registers" in line \
+            if "bsw_row_cu" in line or "registers" in line \
                     or "spill" in line:
                 print(f"[this] {line.strip()}")
-        line = json.dumps(row_ab(args.base, args.reps, card, ops_rate))
+        line = json.dumps(row_ab(args.base, args.reps, card, ops_rate,
+                                 [int(b) for b in args.bands.split(",")]))
         if args.out:
             with open(args.out, "w") as fh:
                 fh.write(line + "\n")
