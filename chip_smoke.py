@@ -23,7 +23,17 @@ Phases (all by default; any failure raises and exits non-zero):
           aligner (merge --device oracle's bsw_align) on every soak
           problem: anti-diagonal in lean and edits fetch, kernel="row"
           in lean and edits fetch, and the host traceback, then
-          kernel="row" at band 700 and the host traceback at band 2000
+          kernel="row" at band 700 and the host traceback at band 2000;
+          the arena gather (csrc/arena_gather.cu) against its plain
+          version and the host's packed windows, bit for bit, on a
+          256-problem soak registered as a sequence arena at bands 30
+          and 150 (tests/torch_problems.py::arena_problems: forward and
+          reverse-complement orientations, unregistered tail slices,
+          begin_a < band, windows past a contig's end, N runs, odd
+          offsets); the arena engine against the oracle on that soak,
+          both forwards in lean and edits fetch; the engine over
+          (cuda:0, cuda:0) against the one-device engine and the oracle
+          on all three paths
   small   gam create + gam merge through the port's CLI on the small
           junction corpus and a fork + bubble corpus: create --device
           cuda and --device auto (the device block join) write create
@@ -53,7 +63,17 @@ Phases (all by default; any failure raises and exits non-zero):
           then the engine's stream pool against one stream, in turns),
           one under torch.profiler (device time per kernel and device
           busy time) of the anti-diagonal path, and one profiled merge
-          of the row path
+          of the row path.  Before the warm merges: the merge under
+          GAM_ARENA=1 (the arena path, launch counts set to 0 just
+          before it: the gather, the anti-diagonal forward and the walk)
+          with the default path's six outputs, the gather against its
+          plain version on that merge's first arena chunk, then the
+          arena and the window uploads in turns, four merges each (align
+          seconds, align_bytes_wire, the arena's share of problems and
+          chunks, gather launches); and the merge with the engine and
+          the edge count over every GPU the process sees, or over
+          (cuda:0, cuda:0) on one card (the six outputs, the shards
+          each device ran, how many distinct GPUs)
   create  the device block join at real size: the 5 Mbp layout with a
           pair every 2 bp (tests/torch_problems.py::scale_columns, ~5 M
           rows a side, 50x coverage), find_blocks_device on the card
@@ -84,7 +104,10 @@ Phases (all by default; any failure raises and exits non-zero):
           bound and ns per serial step (the longest problem's steps);
           then the row forward at bands 300, 511, 700 and 2000, XW 4096,
           and at band 150 on one 5 Mbp chunk's shape (XW 32768, x_size
-          25000), each with ns a row, bound and multiple
+          25000), each with ns a row, bound and multiple; the arena
+          gather on that chunk shape (B=64; 20 calls queued behind a
+          sleep, as its launch outlasts it), its bound and multiple,
+          beside the host packing + upload it replaces
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
@@ -127,6 +150,7 @@ from gam_ngs_tpu_torch.models.merge import (  # noqa: E402
     run_merge,
 )
 from gam_ngs_tpu_torch.ops import (  # noqa: E402
+    arena_gather,
     bsw_antidiag,
     bsw_engine,
     bsw_row,
@@ -134,11 +158,17 @@ from gam_ngs_tpu_torch.ops import (  # noqa: E402
     device_join,
     region_score,
 )
+from gam_ngs_tpu_torch.ops.arena_gather import (  # noqa: E402
+    gather_windows,
+    gather_windows_torch,
+)
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
+    a_width,
     forward_antidiag,
     forward_antidiag_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine  # noqa: E402
+from gam_ngs_tpu_torch.ops.bsw_host import _prepare  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
     forward_row,
     forward_row_torch,
@@ -159,7 +189,7 @@ DEV = torch.device("cuda")
 FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
                              ANTIDIAG),
             "bsw_row": (forward_row, forward_row_torch, ROW)}
-KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row")
+KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "arena_gather")
 # int32 operations the function needs, counted from the recurrence and
 # not from either kernel's scheme, so both forwards share one figure.
 # One band cell of bsw_ref.fill_matrix: its position (1), range test (2),
@@ -266,8 +296,14 @@ def note_err(res, label, errs: dict) -> None:
         err[k] = max(err[k], v)
 
 
-def check_engine(problems, want, label, **kw) -> None:
-    eng = BswEngine(DEV, **kw)
+def check_engine(problems, want, label, contigs=None, devices=DEV,
+                 **kw) -> list:
+    """The CUDA engine (on `devices`; with `contigs` registered as its
+    sequence arena) against the oracle's results; the kernels its path
+    runs, and no other, must launch.  Returns its results."""
+    eng = BswEngine(devices, **kw)
+    if contigs is not None:
+        eng.register_contigs(contigs)
     n0 = BswEngine.kernel_launches()
     got = eng.align_many(problems)
     torch.cuda.synchronize()
@@ -275,16 +311,80 @@ def check_engine(problems, want, label, **kw) -> None:
     bad = [i for i, (g, w) in enumerate(zip(got, want))
            if not tp.same_alignment(g, w)]
     used = {k: n1[k] - n0[k] for k in n1}
+    arena = (f", {eng.arena_problems} problems in {eng.arena_chunks} "
+             f"arena chunks" if contigs is not None else "")
     log(f"[parity] engine {label}: {len(problems) - len(bad)}/"
         f"{len(problems)} equal to the oracle (bsw_align) "
-        f"({eng.dispatches} dispatches, launches {used})")
+        f"({eng.dispatches} dispatches{arena}, shards a device "
+        f"{eng.shard_runs}, launches {used})")
     if bad:
         raise AssertionError(f"engine {label} differs on {bad[:10]}")
     row = eng.kernel == "row" or eng.traceback == "host"
-    want_used = {"bsw_antidiag": not row, "bsw_row": row,
+    want_used = {"arena_gather": contigs is not None,
+                 "bsw_antidiag": not row, "bsw_row": row,
                  "bsw_walk": eng.traceback == "device"}
     if {k: v > 0 for k, v in used.items()} != want_used:
         raise AssertionError(f"engine {label}: launches {used}")
+    if contigs is not None and not (
+            0 < eng.arena_problems < eng.util["live"]
+            and used["arena_gather"] == eng.arena_chunks):
+        raise AssertionError(f"engine {label}: {eng.arena_problems} arena "
+                             f"problems of {eng.util['live']}, "
+                             f"{eng.arena_chunks} arena chunks, "
+                             f"launches {used}")
+    return got
+
+
+def gather_inputs(problems, contigs, band):
+    """The arena soak's registered problems as the gather's card inputs
+    (arena, cols, band, aw, xw) and the host's packed windows."""
+    arena, cols, a_pk, b_pk, xw = tp.arena_chunk(contigs, problems, band)
+    args = (*to_dev(arena, cols), band, a_width(xw, band), xw)
+    return args, (a_pk, b_pk)
+
+
+def gather_vs_plain(res, args, host, label) -> None:
+    """The gather kernel against its plain version on the same card
+    inputs and, where given, the host's _pack_chunk + _pack4 bytes."""
+    got = gather_windows(*args)
+    plain = gather_windows_torch(*args)
+    errs = {"arena_gather": max_err(got, plain)}
+    if host is not None and not all(
+            np.array_equal(g.cpu().numpy(), h) for g, h in zip(got, host)):
+        raise AssertionError(f"{label}: the gather's windows differ from "
+                             f"the host's packed windows")
+    note_err(res, f"{label} arena_gather (B={args[1].shape[1]}, "
+             f"XW={args[4]}){'' if host is None else ' = host packing'}",
+             errs)
+
+
+def phase_arena_parity(res):
+    """The gather kernel on the arena soak at bands 30 and 150 (forward and
+    reverse-complement orientations, unregistered tail slices, begin_a <
+    band, windows past a contig's end, N runs, odd offsets), then the
+    arena engine and the engine over two shards of one card."""
+    for band in (30, 150):
+        contigs, problems = tp.arena_problems(256)
+        args, host = gather_inputs(problems, contigs, band)
+        gather_vs_plain(res, args, host, f"[parity] arena soak band={band}")
+    contigs, problems = tp.arena_problems(256)
+    want = tp.oracle(problems, 150)
+    for kernel in ("antidiag", "row"):
+        for fetch in ("lean", "edits"):
+            check_engine(problems, want, f"arena {kernel} fetch={fetch}",
+                         contigs=contigs, fetch=fetch, kernel=kernel)
+    problems = tp.soak_problems(256)
+    want = tp.oracle(problems, 150)
+    two = (torch.device("cuda", 0),) * 2
+    for label, kw in (("antidiag", {"kernel": "antidiag"}),
+                      ("row", {"kernel": "row"}),
+                      ("host traceback", {"traceback": "host"})):
+        one = check_engine(problems, want, f"{label} one device",
+                           fetch="edits", **kw)
+        got = check_engine(problems, want, f"{label} over (cuda:0, cuda:0)",
+                           devices=two, fetch="edits", **kw)
+        if not all(tp.same_alignment(g, w) for g, w in zip(got, one)):
+            raise AssertionError(f"{label}: two shards != one device")
 
 
 def phase_parity(res):
@@ -337,6 +437,7 @@ def phase_parity(res):
         problems = tp.soak_problems(6, seed=seed, max_len=max_len)
         check_engine(problems, tp.oracle(problems, band),
                      f"band={band} {kw}", band=band, **kw)
+    phase_arena_parity(res)
 
 
 def run_cli(argv) -> None:
@@ -521,6 +622,7 @@ def device_busy_ms(prof) -> float:
 
 def reset_launches() -> None:
     bsw_antidiag.launches = bsw_row.launches = bsw_walk.launches = 0
+    arena_gather.launches = 0
 
 
 def phase_full(tmp, res):
@@ -550,12 +652,12 @@ def phase_full(tmp, res):
 
     # each path once, its launch counts set to 0 just before and read
     # just after it
-    expect = {"antidiag": {"bsw_antidiag": True, "bsw_row": False,
-                           "bsw_walk": True},
-              "row": {"bsw_antidiag": False, "bsw_row": True,
-                      "bsw_walk": True},
-              "host": {"bsw_antidiag": False, "bsw_row": True,
-                       "bsw_walk": False}}
+    expect = {"antidiag": {"arena_gather": False, "bsw_antidiag": True,
+                           "bsw_row": False, "bsw_walk": True},
+              "row": {"arena_gather": False, "bsw_antidiag": False,
+                      "bsw_row": True, "bsw_walk": True},
+              "host": {"arena_gather": False, "bsw_antidiag": False,
+                       "bsw_row": True, "bsw_walk": False}}
     keep = KeepChunkInputs()
     res["launches"] = {}
     for path in ("antidiag", "row", "host"):
@@ -601,6 +703,8 @@ def phase_full(tmp, res):
     log("[full] GAM_KERNEL=row and the host traceback: six outputs "
         "byte-identical to the default path's")
     want = (d / "antidiag.gam.fasta").read_bytes()
+    arena_merges(d, c, blocks, res)
+    sharded_merge(d, c, blocks)
 
     # the kernels against their plain versions on the merges' own chunks:
     # every shape of the anti-diagonal path, the row path's smallest batch
@@ -662,6 +766,128 @@ def phase_full(tmp, res):
                                    key=lambda kv: -kv[1][0])[:8]:
             log(f"[full]   {v:10.3f} ms  {n:4d} x {v / n:8.3f} ms  "
                 f"{name[:80]}")
+
+
+def engine_merge(c, blocks, prefix, engine, arena=False):
+    """run_merge of the corpus with `engine`, under GAM_ARENA=1 when
+    `arena`: (wall s, .metrics.json, the merge's log lines)."""
+    lines: list[str] = []
+    old = os.environ.pop("GAM_ARENA", None)
+    if arena:
+        os.environ["GAM_ARENA"] = "1"
+    try:
+        t0 = time.time()
+        run_merge(MergeOptions(
+            master_bam_file=c["ml"], slave_bam_file=c["sl"],
+            blocks_file=blocks, master_fasta_file=c["mfa"],
+            slave_fasta_file=c["sfa"], min_block_size=10,
+            output_file_prefix=prefix, engine=engine), log=lines.append)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        os.environ.pop("GAM_ARENA", None)
+        if old is not None:
+            os.environ["GAM_ARENA"] = old
+    return wall, json.load(open(f"{prefix}.metrics.json")), lines
+
+
+def same_outputs(d, prefix, ref="antidiag") -> bool:
+    return all((d / f"{prefix}{ext}").read_bytes()
+               == (d / f"{ref}{ext}").read_bytes() for ext in OUTPUTS)
+
+
+def arena_merges(d, c, blocks, res) -> None:
+    """The 5 Mbp merge under GAM_ARENA=1 (the arena path: the gather, the
+    anti-diagonal forward and the walk, its counts set to 0 just before
+    it and read just after): the default merge's six outputs; the gather
+    against its plain version on the merge's first arena chunk; then the
+    arena and the window uploads in turns, three merges each."""
+    kept = {}
+    orig = bsw_engine.gather_windows
+
+    def keep(*args):
+        kept.setdefault("args", tuple(
+            v.clone() if torch.is_tensor(v) else v for v in args))
+        return orig(*args)
+
+    reset_launches()
+    eng = BswEngine(DEV)
+    bsw_engine.gather_windows = keep
+    try:
+        wall, m, lines = engine_merge(c, blocks, f"{d}/arena", eng, True)
+    finally:
+        bsw_engine.gather_windows = orig
+    launches = BswEngine.kernel_launches()
+    res["launches"]["arena"] = launches
+    if not same_outputs(d, "arena"):
+        raise AssertionError("5 Mbp under GAM_ARENA=1: another output")
+    merged = tp.read_fasta_seqs(f"{d}/arena.gam.fasta")
+    if c["genome"] not in merged:
+        raise AssertionError("5 Mbp under GAM_ARENA=1: genome not rebuilt")
+    if not (launches["arena_gather"] == eng.arena_chunks > 0
+            and launches["bsw_antidiag"] > 0 and launches["bsw_walk"] > 0
+            and launches["bsw_row"] == 0):
+        raise AssertionError(f"5 Mbp under GAM_ARENA=1: launches "
+                             f"{launches}, {eng.arena_chunks} arena chunks")
+    log(f"[full] arena: merge {wall:.4f} s, six outputs byte-identical to "
+        f"the default path's, genome reconstructed exactly; launches "
+        f"{launches}; "
+        + "; ".join(x for x in lines if "sequence arena:" in x))
+    args = kept["args"]
+    gather_vs_plain(res, args, None, "[full] arena merge chunk")
+    # the arena against the window uploads, in turns
+    runs: dict[str, list] = {"arena": [], "upload": []}
+    for mode in ("arena", "upload", "upload", "arena") * 2:
+        n0 = arena_gather.launches
+        eng = BswEngine(DEV)
+        wall, m, _lines = engine_merge(c, blocks, f"{d}/ab_{mode}", eng,
+                                       mode == "arena")
+        if not same_outputs(d, f"ab_{mode}"):
+            raise AssertionError(f"5 Mbp A/B {mode}: another output")
+        live = max(eng.util["live"], 1)
+        arena_b = 0 if eng._arena_host is None else eng._arena_host.nbytes
+        row = (m["phases"]["align"], m["counters"]["align_bytes_wire"],
+               arena_b, eng.arena_problems / live,
+               eng.arena_chunks / max(eng.dispatches, 1),
+               arena_gather.launches - n0, wall)
+        runs[mode].append(row)
+        log(f"[full] A/B {mode}: align {row[0]:.4f} s, align_bytes_wire "
+            f"{row[1]} (arena {row[2]} once + columns {row[1] - row[2]}), "
+            f"arena share {eng.arena_problems}/{eng.util['live']} problems "
+            f"({100 * row[3]:.1f}%), {eng.arena_chunks}/{eng.dispatches} "
+            f"chunks ({100 * row[4]:.1f}%), gather launches {row[5]}, "
+            f"wall {wall:.4f} s")
+    log("[full] A/B align s, median of 4 warm merges each: " + ", ".join(
+        f"{k} {statistics.median(r[0] for r in v):.4f}"
+        for k, v in runs.items()) + "; align_bytes_wire " + ", ".join(
+        f"{k} {v[0][1]}" for k, v in runs.items()))
+
+
+def sharded_merge(d, c, blocks) -> None:
+    """The 5 Mbp merge with the engine (and the edge count) over every GPU
+    the process sees, or over (cuda:0, cuda:0) on one: the default
+    merge's six outputs, and the shards each device ran."""
+    n_gpu = torch.cuda.device_count()
+    devices = (tuple(torch.device("cuda", i) for i in range(n_gpu))
+               if n_gpu > 1 else (torch.device("cuda", 0),) * 2)
+    reset_launches()
+    eng = BswEngine(devices)
+    wall, m, lines = engine_merge(c, blocks, f"{d}/sharded", eng)
+    launches = BswEngine.kernel_launches()
+    if not same_outputs(d, "sharded"):
+        raise AssertionError(f"5 Mbp over {devices}: another output")
+    if sum(n > 0 for n in eng.shard_runs) < 2:
+        raise AssertionError(f"5 Mbp over {devices}: shards a device "
+                             f"{eng.shard_runs}")
+    log(f"[full] engine over {len(devices)} shards on "
+        f"{len(set(devices))} distinct GPU(s) ({', '.join(map(str, devices))}"
+        f"): six outputs byte-identical to the default path's; wall "
+        f"{wall:.4f} s, align {m['phases']['align']:.4f} s; launches "
+        f"{launches}; each device's shards (one forward and one walk "
+        f"launch each): " + ", ".join(
+            f"#{k} {dev}: {n}" for k, (dev, n) in enumerate(
+                zip(devices, eng.shard_runs)))
+        + "; " + "; ".join(x for x in lines if "engine on" in x))
 
 
 def payload_merge(d, merge, m_res) -> None:
@@ -1059,6 +1285,24 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times), out
 
 
+def queued_ms(fn, reps=20) -> float:
+    """Device ms of one call of a kernel whose launch costs the host more
+    than the kernel costs the card: the stream sleeps while the host
+    queues two events around `reps` calls, so the card runs them back to
+    back and the events see no host gap."""
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms: longer than the queueing
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -1167,12 +1411,72 @@ def phase_timing(res, card):
             f"ms ({b_by}), {ms / b_ms:.1f}x it, {ms * 1e6 / steps:.1f} "
             f"ns/row ({steps} rows); plain {t['bsw_row_plain']:.4f} ms")
         res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms)
+    time_gather(res, card)
+
+
+def time_gather(res, card) -> None:
+    """gather_windows at B=64 on one 5 Mbp chunk's shape (XW 32768,
+    x_size 25000, band 150): its device time a call (queued_ms; the
+    CUDA-event median of one call, which includes the launch, beside it)
+    against its bound (bytes: the windows written, the columns and the
+    arena codes the windows hold, read once) and one call of its plain
+    version; and the host packing + upload of the same chunk (_pack_chunk
+    + _pack4 + three copies to the card), the work the arena replaces."""
+    band, xw = 150, 32768
+    problems = timing_problems(xw, band, fixed=25000)
+    eng = BswEngine(DEV, band=band)
+    eng.register_contigs([p[0] for p in problems] + [p[3] for p in problems])
+    preps = [_prepare(*p, band) for p in problems]
+    for p in preps:
+        p.a_arena, p.b_arena = eng._seq_lookup(p.a), eng._seq_lookup(p.b)
+    chunk = list(range(len(preps)))
+    cols = eng._pack_chunk_arena(chunk, preps, xw)
+    args = (eng._arena_packed(DEV), *to_dev(cols), band, a_width(xw, band),
+            xw)
+    t = {}
+    one_ms, got = cuda_ms(lambda: gather_windows(*args))
+    t["arena_gather"] = queued_ms(lambda: gather_windows(*args))
+    plain = timed_once(t, "arena_gather_plain",
+                       lambda: gather_windows_torch(*args))
+    host = eng._pack_chunk(chunk, preps, xw)[:2]
+    note_err(res, "[timing] arena_gather B=64 XW=32768",
+             {"arena_gather": max_err(got, plain)})
+    if not all(np.array_equal(g.cpu().numpy(), h)
+               for g, h in zip(got, host)):
+        raise AssertionError("[timing] the gather's windows differ from "
+                             "the host's packed windows")
+    # arena codes the windows hold: each problem's in-range a and b codes
+    held = sum(min(p.a_arena[1], p.begin_a - band + p.x_size + 2 * band)
+               - max(0, p.begin_a - band) + p.x_size for p in preps)
+    n_bytes = nbytes(*got, args[1]) + held // 2
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_pk, b_pk, scal = eng._pack_chunk(chunk, preps, xw)
+        to_dev(a_pk, b_pk, scal)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = t["arena_gather"]
+    log(f"[timing] {card} | B=64 band={band} XW={xw} x_size=25000 "
+        f"arena_gather: {ms:.4f} ms a call on the card (20 calls queued "
+        f"behind a sleep; one call between CUDA events, its launch "
+        f"included: {one_ms:.4f} ms, median of 5), bound {b_ms:.6f} ms "
+        f"(bytes, {n_bytes} B), {ms / b_ms:.1f}x it; plain "
+        f"{t['arena_gather_plain']:.4f} ms; the host packing + upload it "
+        f"replaces: {statistics.median(times):.4f} ms (host clock, median "
+        f"of 5)")
+    res["timing_gather"] = (ms, t["arena_gather_plain"], b_ms)
 
 
 def kernels_line(res) -> dict:
     tk = res.get("timing_xw4096", {})
     bd = res.get("bound_xw4096", {})
     launches = res.get("launches", {})
+    g_ms, g_plain, g_bound = res.get("timing_gather", (None, None, None))
+    tk = {**tk, "arena_gather": g_ms, "arena_gather_plain": g_plain}
+    bd = {**bd, "arena_gather": (g_bound, "bytes" if g_bound else None)}
     kern = []
     for name, src, rep, path in (
             ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
@@ -1180,7 +1484,9 @@ def kernels_line(res) -> dict:
             ("bsw_walk", "gam_ngs_tpu_torch/csrc/bsw_walk.cu",
              "gam_ngs_tpu/ops/bsw_batch.py:383", "antidiag"),
             ("bsw_row", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
-             "gam_ngs_tpu/ops/bsw_pallas.py:48", "row")):
+             "gam_ngs_tpu/ops/bsw_pallas.py:48", "row"),
+            ("arena_gather", "gam_ngs_tpu_torch/csrc/arena_gather.cu",
+             "gam_ngs_tpu/ops/bsw_batch.py:866", "arena")):
         b_ms, b_by = bd.get(name, (None, None))
         kern.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
@@ -1188,7 +1494,8 @@ def kernels_line(res) -> dict:
                      "max_abs_err": res.get("max_abs_err", {}).get(name),
                      "ms": tk.get(name), "plain_ms": tk.get(name + "_plain"),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     # no PyTorch call computes a banded SW fill or walk
+                     # no PyTorch call computes a banded SW fill or walk,
+                     # nor the gather with its orientation and sentinels
                      "library_ms": None})
     return {"kernels": kern}
 

@@ -2,12 +2,13 @@
 
 The same assembly reconciliation (gam create / merge / n50 / index),
 with the device stages written for an NVIDIA Hopper GPU: the banded
-Smith-Waterman forward fill (anti-diagonal and row form) and its
-traceback walk are hand-written CUDA kernels (csrc/); the partition edge
-count, create's block join (ops/device_join.py) and the multi-process
-create's insert moments are torch ops.  Every kernel has a plain
-PyTorch version beside it, which runs when its tensors lie on the CPU.
-The package imports neither JAX nor gam_ngs_tpu: it keeps its own
+Smith-Waterman forward fill (anti-diagonal and row form), its traceback
+walk and the sequence arena's window gather are hand-written CUDA
+kernels (csrc/), run on one GPU or sharded over several; the partition
+edge count, create's block join (ops/device_join.py) and the
+multi-process create's insert moments are torch ops.  Every kernel has a
+plain PyTorch version beside it, which runs when its tensors lie on the
+CPU.  The package imports neither JAX nor gam_ngs_tpu: it keeps its own
 copies of the host layers (io, core, graphs, merge, native, utils and
 the exact oracles in ops).
 

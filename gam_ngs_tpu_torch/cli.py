@@ -3,14 +3,15 @@
     python -m gam_ngs_tpu_torch.cli {create,merge,n50,index} ...
 
 The flags are those of gam_ngs_tpu/cli.py (the reference binaries'
-flags).  merge --device picks the banded-SW engine's torch device:
-`auto` and `cuda` need a CUDA GPU and fail without one, `cpu` runs the
-kernels' plain PyTorch versions, `oracle` the exact host aligner.
-`cuda:N` names one GPU.  create --device picks the block
-construction: `native` (C++ scan), `oracle` (exact Python scan), the
-device join on a torch device (`cuda`, `cuda:N`, or `cpu` for its
-torch ops on the CPU), or `auto` (the device join on cuda, which fails
-without a GPU, as merge's auto does).
+flags).  merge --device picks the banded-SW engine's torch devices:
+`auto` and `cuda` need a CUDA GPU and fail without one, and in one
+process take every GPU it sees (each chunk sharded over them, as the JAX
+CLI's local mesh); `cuda:N` names one GPU, `cpu` runs the kernels' plain
+PyTorch versions, `oracle` the exact host aligner.  create --device
+picks the block construction: `native` (C++ scan), `oracle` (exact
+Python scan), the device join on a torch device (`cuda`, `cuda:N`, or
+`cpu` for its torch ops on the CPU), or `auto` (the device join on cuda,
+which fails without a GPU, as merge's auto does).
 
 --coordinator host:port --num-processes N --process-id k runs one of N
 processes over a torch.distributed gloo group; every process runs the
@@ -18,7 +19,8 @@ same command and host 0 writes the outputs.  merge: each process aligns
 its share of the graph partitions.  create: each process runs the
 device join over its share of the slave contigs (the sharded join is
 create's only multi-process path, whatever --device names).  Under
-auto and cuda process k takes cuda:(k mod the GPUs it sees).
+auto and cuda process k takes cuda:(k mod the GPUs it sees), one GPU
+a process.
 """
 
 from __future__ import annotations
@@ -164,10 +166,12 @@ def main(argv=None) -> int:
         try:
             engine = None
             if args.device != "oracle":
-                from .device import resolve_device
+                from .device import resolve_devices
                 from .ops.bsw_engine import BswEngine
+                from .parallel.distributed import proc_info
 
-                engine = BswEngine(resolve_device(args.device))
+                engine = BswEngine(resolve_devices(
+                    args.device, multi_process=proc_info()[1] > 1))
             run_merge(MergeOptions(
                 master_bam_file=args.master_bam,
                 slave_bam_file=args.slave_bam,

@@ -4,9 +4,10 @@ gam_ngs_tpu/graphs/partition.py::partition_blocks
 (PartitionFunctions.cc:65-170): partition the blocks by contig pairs,
 build and classify the assembly / compact graphs (cyclic ones dropped),
 then weight every compact-graph edge, all graphs in one process or each
-process its own share (shard=).  Only the edge counter differs: with a
-torch device the jobs of the graphs go to ops.region_score in one call;
-with device=None they are counted on the host
+process its own share (shard=).  Only the edge counter differs: with
+torch devices (one, or the engine's several: the JAX mesh=) the jobs of
+the graphs go to ops.region_score in one call; with devices=None they
+are counted on the host
 (CompactAssemblyGraph.compute_edge_weights(batched=False)).
 """
 
@@ -14,8 +15,6 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-
-import torch
 
 from ..ops import region_score
 from ..parallel.distributed import allgather_obj, shard_partitions
@@ -40,7 +39,7 @@ class GraphStats:
 
 
 def partition_blocks(blocks, master_pe, master_mp, slave_pe, slave_mp,
-                     device: torch.device | None,
+                     devices,
                      no_mult_filter: bool = False,
                      output_graphs: bool = False,
                      graphs_dir: str = "./gam_graphs",
@@ -123,7 +122,7 @@ def partition_blocks(blocks, master_pe, master_mp, slave_pe, slave_mp,
 
     fetch = None
     spans: list[tuple[int, int]] = []
-    if device is None:
+    if devices is None:
         for i in owned:
             built[i][1].compute_edge_weights(master_pe, master_mp, slave_pe,
                                              slave_mp, no_mult_filter,
@@ -137,7 +136,7 @@ def partition_blocks(blocks, master_pe, master_mp, slave_pe, slave_mp,
             all_jobs.extend(jobs)
         # queued now, fetched by the finisher: the caller overlaps the
         # device count with host work (run_merge loads the FASTAs)
-        fetch = region_score.count_jobs(all_jobs, device, defer=True)
+        fetch = region_score.count_jobs(all_jobs, devices, defer=True)
 
     def finish_weights():
         if fetch is not None:

@@ -3,14 +3,17 @@
 gam_ngs_tpu/models/merge.py::run_merge (Merge::execute, Merge.cc:90),
 in one process or, under a torch.distributed process group, sharded by
 graph partition over the group (parallel.distributed; host 0 writes
-every output).  With an engine (ops.bsw_engine.BswEngine) the two
-device stages run on the engine's torch.device: the partition edge
-count (ops.region_score) and the banded-SW align stage (the CUDA
-kernels on a GPU).  engine=None is the oracle path: bsw_ref.bsw_align
-and host edge weights.  Outputs are those of the JAX package, byte for
-byte:
+every output).  With an engine (ops.bsw_engine.BswEngine) the two device
+stages run on the engine's torch devices (one, or several in one
+process): the partition edge count (ops.region_score) and the banded-SW
+align stage (the CUDA kernels on a GPU).  Under GAM_ARENA=1 both
+assemblies are registered with the engine's sequence arena once the
+sequences are loaded (opt-in, as in the JAX package).  engine=None is
+the oracle path: bsw_ref.bsw_align and host edge weights.  Outputs are
+those of the JAX package, byte for byte:
   <prefix>.gam.fasta, .pctgs, .stats, .noblocks.BF.fasta,
-  .noblocks.AF.fasta, .notmerged.fasta, .metrics.json (same keys),
+  .noblocks.AF.fasta, .notmerged.fasta, .metrics.json (the same keys,
+  and the count of engine devices),
   and <bam-list>.isize when missing.
 """
 
@@ -118,15 +121,21 @@ def run_merge(opts: MergeOptions, log=print):
     t_start = time.time()
     metrics = Metrics()
     engine = opts.engine
-    device = engine.device if engine is not None else None
+    devices = engine.devices if engine is not None else None
 
-    if device is not None and device.type == "cuda":
-        # the process's first device round trip (context creation, first
-        # copy) lands here instead of in whichever phase came first
-        t0 = time.time()
-        torch.zeros((), device=device).item()
-        torch.cuda.synchronize(device)
-        metrics.phases["device_warmup"] = time.time() - t0
+    if devices is not None:
+        log(f"[merge] engine on {len(devices)} device(s): "
+            f"{', '.join(str(d) for d in devices)}")
+        metrics.count("engine_devices", len(devices))
+        if devices[0].type == "cuda":
+            # the process's first device round trips (context creation,
+            # first copy) land here instead of in whichever phase came
+            # first
+            t0 = time.time()
+            for dev in dict.fromkeys(devices):
+                torch.zeros((), device=dev).item()
+                torch.cuda.synchronize(dev)
+            metrics.phases["device_warmup"] = time.time() - t0
 
     pid, nproc = proc_info()
     is_writer = pid == 0
@@ -213,7 +222,7 @@ def run_merge(opts: MergeOptions, log=print):
     wire0 = {k: wire[k] for k in ("bytes_up", "arena_bytes_up",
                                   "dispatches")}
     graphs, gstats, finish_weights = partition_blocks(
-        blocks, master_bam, master_mp, slave_bam, slave_mp, device,
+        blocks, master_bam, master_mp, slave_bam, slave_mp, devices,
         opts.no_multiplicity_filter, opts.output_graphs,
         defer_weights=True, shard=((pid, nproc) if nproc > 1 else None))
     stats_chunks.append(gstats.stats_text())
@@ -262,6 +271,14 @@ def run_merge(opts: MergeOptions, log=print):
     t_phase = time.time()
     finish_weights()
     metrics.phases["partition_fetch"] = time.time() - t_phase
+
+    if os.environ.get("GAM_ARENA") == "1" and engine is not None:
+        # resident sequence arena (opt-in, JAX models/merge.py:278-288):
+        # both assemblies go to the card once, 4-bit packed, and the
+        # align chunks ship window coordinates instead of window bytes
+        engine.register_contigs(
+            [master_ref[i].seq for i in range(len(master_ref))]
+            + [slave_ref[i].seq for i in range(len(slave_ref))])
 
     # ---- slave contigs without blocks ----
     if is_writer:
@@ -325,6 +342,10 @@ def run_merge(opts: MergeOptions, log=print):
         metrics.count("aligned_cells", engine.cells_aligned - cells0)
         metrics.count("align_bytes_wire", engine.bytes_up)
         metrics.count("align_dispatches", engine.dispatches)
+        if engine.arena_chunks:
+            log(f"[merge] sequence arena: {engine.arena_problems} of "
+                f"{engine.util['live']} problems, {engine.arena_chunks} of "
+                f"{engine.dispatches} chunks")
         u = engine.util
         if u["batch"]:
             metrics.count("batch_fill_pct",

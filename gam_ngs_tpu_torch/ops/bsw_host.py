@@ -36,6 +36,11 @@ class _Prep:
     b_win: np.ndarray = None
     force_start: bool = False
     force_end: bool = False
+    # resident-arena coordinates (ofs, len, rev) when both sequences
+    # live in the engine's sequence arena: the chunk then ships 12
+    # int32 columns instead of the packed windows
+    a_arena: tuple | None = None
+    b_arena: tuple | None = None
 
 
 def _prepare(a, begin_a, end_a, b, begin_b, end_b, force_start, force_end,

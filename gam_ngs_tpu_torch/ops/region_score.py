@@ -20,8 +20,14 @@ device the columns were uploaded to:
 Chunks keep the reference's ROW_CAP / OV_CAP bounds; a job whose summed
 read lengths exceed OV_CAP is counted exactly on the host
 (_count_job_host).  The sums run in int64 (torch.cumsum's type for
-integer input); under the caps int32 would be exact as well.  The
-mesh-sharded count is not ported (one GPU a process).
+integer input); under the caps int32 would be exact as well.
+
+Over several devices (the JAX `_resident_kernel_meshed`), the resident
+count caps a chunk at about 1/n of the rows, so each device gets a
+chunk, copies the touched rows' columns to every device that counts a
+chunk, and deals the chunks out in groups of n, chunk g to device
+g mod n; the results are gathered in job order.  The payload count runs
+on the first device, as the JAX one takes no mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import os
 import numpy as np
 import torch
 
+from ..device import as_devices
 from ..io.bam import FMREVERSE, FMUNMAP, FPAIRED, FREVERSE
 
 XT_U = ord("U")
@@ -60,6 +67,10 @@ ROW_CAP = 1 << 21
 # host-side worst-case sum of read lengths exceeds this; a single job
 # beyond it is counted exactly on the host instead.
 OV_CAP = 1 << 30
+
+# The JAX kernels' lane width: the floor of a device's share of the rows
+# over several devices, so chunks split as the JAX count's do.
+LANES = 512
 
 
 def use_resident() -> bool:
@@ -257,11 +268,13 @@ def count_payload(rows: dict, jobs_t: torch.Tensor) -> torch.Tensor:
         s1[job], s2[job], t[job], max_insert[job], seq_len[job])
 
 
-def _chunks(lens: list[int], weights: list[int], host_count, results: list
-            ) -> list[list[int]]:
-    """Split the jobs at job boundaries so each chunk stays under ROW_CAP
-    rows and OV_CAP summed read lengths; a job that alone exceeds OV_CAP
-    is counted on the host (host_count(k)) into results instead."""
+def _chunks(lens: list[int], weights: list[int], host_count, results: list,
+            row_cap: int | None = None) -> list[list[int]]:
+    """Split the jobs at job boundaries so each chunk stays under row_cap
+    (default ROW_CAP) rows and OV_CAP summed read lengths; a job that
+    alone exceeds OV_CAP is counted on the host (host_count(k)) into
+    results instead."""
+    row_cap = ROW_CAP if row_cap is None else row_cap
     chunks: list[list[int]] = []
     chunk: list[int] = []
     chunk_rows = chunk_w = 0
@@ -269,7 +282,7 @@ def _chunks(lens: list[int], weights: list[int], host_count, results: list
         if weights[k] > OV_CAP:
             results[k] = host_count(k)
             continue
-        if chunk and (chunk_rows + n > ROW_CAP
+        if chunk and (chunk_rows + n > row_cap
                       or chunk_w + weights[k] > OV_CAP):
             chunks.append(chunk)
             chunk, chunk_rows, chunk_w = [], 0, 0
@@ -330,18 +343,20 @@ def _count_jobs_payload(jobs: list[dict], dev: torch.device):
     return _finisher(pending, results)
 
 
-def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
+def count_jobs(jobs: list[dict], devices, defer: bool = False):
     """Counts (good_reads, exp_reads, num_reads) of each job, in order, on
-    `device`.  A job is a resident range (a dict with _mb, lib, lo, hi)
-    or a row payload (a dict of _ROW_FIELDS row arrays), with the
-    scalars s1, s2, t, max_insert, seq_len, no_mult; every job of one
-    call has the same form.  defer=True queues every chunk on the device
-    and returns a zero-argument finisher that fetches the results."""
+    `devices`: a torch.device, or a sequence of them to deal the resident
+    count's chunks over.  A job is a resident range (a dict with _mb,
+    lib, lo, hi) or a row payload (a dict of _ROW_FIELDS row arrays),
+    with the scalars s1, s2, t, max_insert, seq_len, no_mult; every job
+    of one call has the same form.  defer=True queues every chunk on the
+    devices and returns a zero-argument finisher that fetches the
+    results."""
     if not jobs:
         return (lambda: []) if defer else []
-    dev = torch.device(device)
+    devs = as_devices(devices)
     if "_mb" not in jobs[0]:
-        fin = _count_jobs_payload(jobs, dev)
+        fin = _count_jobs_payload(jobs, devs[0])
         return fin if defer else fin()
 
     # coalesce the jobs' row ranges per table: only the union of touched
@@ -385,14 +400,19 @@ def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
         abs_lo.append(arena_base(tid, j["lo"]) if j["hi"] > j["lo"] else 0)
 
     results: list = [None] * len(jobs)
+    n_dev = len(devs)
+    # over several devices, aim for >= n_dev chunks so each gets one
+    row_cap = None if n_dev == 1 else min(
+        ROW_CAP, max(LANES, -(-sum(lens) // n_dev)))
     chunks = _chunks(
         lens, weights,
-        lambda k: _count_job_host(_materialize_resident(jobs[k])), results)
+        lambda k: _count_job_host(_materialize_resident(jobs[k])), results,
+        row_cap)
 
     pending: list[tuple[list[int], torch.Tensor]] = []
     if chunks:
         n_rows = max(total, 1)
-        cols = []
+        bufs = []
         for k in range(4):
             buf = np.zeros(n_rows, np.uint8 if k == 3 else np.int32)
             for tid, rr in runs.items():
@@ -400,9 +420,14 @@ def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
                 for lo, hi, bs in rr:
                     buf[bs:bs + hi - lo] = col[lo:hi]
             WIRE["arena_bytes_up"] += buf.nbytes
-            cols.append(torch.from_numpy(buf).to(dev))
+            bufs.append(buf)
+        cols_on: dict = {}  # device -> its copy of the columns
+        for dev in devs[:len(chunks)]:
+            if dev not in cols_on:
+                cols_on[dev] = [torch.from_numpy(b).to(dev) for b in bufs]
 
-        for idxs in chunks:
+        for g, idxs in enumerate(chunks):
+            dev = devs[g % n_dev]
             jt = np.zeros((9, len(idxs)), np.int32)
             off = 0
             for jj, k in enumerate(idxs):
@@ -414,7 +439,7 @@ def count_jobs(jobs: list[dict], device: torch.device, defer: bool = False):
                     jt[3 + f, jj] = jobs[k][name]
             WIRE["bytes_up"] += jt.nbytes
             WIRE["dispatches"] += 1
-            res = count_resident(cols, torch.from_numpy(jt).to(dev),
+            res = count_resident(cols_on[dev], torch.from_numpy(jt).to(dev),
                                  max(off, 1))
             pending.append((idxs, res))
 

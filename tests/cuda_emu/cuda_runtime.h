@@ -1,6 +1,7 @@
-// A CPU stand-in for the CUDA runtime, for tests/test_torch_row_emulated.py:
-// it lets g++ compile a kernel source of gam_ngs_tpu_torch/csrc and run it
-// on the host.  A launch runs the grid's blocks one after another; a
+// A CPU stand-in for the CUDA runtime, for tests/test_torch_row_emulated.py
+// and tests/test_torch_arena.py: it lets g++ compile a kernel source of
+// gam_ngs_tpu_torch/csrc and run it on the host.  A launch runs the grid's
+// blocks one after another (a dim3 grid in x, then y, then z order); a
 // block's threads are std::threads, and each warp's shuffles, votes and
 // __syncwarp meet at a barrier of its 32 threads, so every thread of a
 // warp must reach them together, as `full`-mask shuffles require on the
@@ -24,6 +25,11 @@
 
 struct emu_dim3 {
   unsigned x = 0, y = 0, z = 0;
+};
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
 inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
@@ -53,25 +59,27 @@ inline long long exchange(long long v, int src) {
 }
 
 template <class K, class... A>
-void launch(K kernel, int grid, int block, size_t shmem, cudaStream_t,
+void launch(K kernel, dim3 grid, int block, size_t shmem, cudaStream_t,
             A... args) {
-  for (int b = 0; b < grid; ++b) {
-    std::vector<Warp> warps((block + 31) / 32);
-    std::barrier<> block_bar(block);
-    std::vector<int> dyn(shmem / sizeof(int) + 1);
-    std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = block;
-        my_warp = &warps[t / 32];
-        my_block = &block_bar;
-        dyn_smem = dyn.data();
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
-  }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::vector<Warp> warps((block + 31) / 32);
+        std::barrier<> block_bar(block);
+        std::vector<int> dyn(shmem / sizeof(int) + 1);
+        std::vector<std::thread> threads;
+        for (int t = 0; t < block; ++t)
+          threads.emplace_back([&, t] {
+            threadIdx.x = t;
+            blockIdx = {bx, by, bz};
+            blockDim.x = block;
+            my_warp = &warps[t / 32];
+            my_block = &block_bar;
+            dyn_smem = dyn.data();
+            kernel(args...);
+          });
+        for (auto& th : threads) th.join();
+      }
 }
 }  // namespace emu
 

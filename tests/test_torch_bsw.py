@@ -370,7 +370,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.library_path().startswith(
         _build.BUILD_DIR + "/libgam_kernels_")
     assert [p.rsplit("/", 1)[1] for p in _build.sources()] == [
-        "bsw_antidiag.cu", "bsw_row.cu", "bsw_walk.cu"]
+        "arena_gather.cu", "bsw_antidiag.cu", "bsw_row.cu", "bsw_walk.cu"]
 
 
 @pytest.mark.parametrize("fail", [False, True])
@@ -400,6 +400,6 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
         assert so.exists()
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(_build.sources()) == 3
+    assert len(compiles) == len(_build.sources()) == 4
     assert [c for c in calls if "-shared" in c] == ([] if fail else
                                                     [calls[-1]])

@@ -12,8 +12,18 @@ import torch
 
 import torch_problems as tp
 from gam_ngs_tpu_torch import cli
-from gam_ngs_tpu_torch.ops import bsw_antidiag, bsw_row, bsw_walk
+from gam_ngs_tpu_torch.ops import (
+    arena_gather,
+    bsw_antidiag,
+    bsw_row,
+    bsw_walk,
+)
+from gam_ngs_tpu_torch.ops.arena_gather import (
+    gather_windows,
+    gather_windows_torch,
+)
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (
+    a_width,
     forward_antidiag,
     forward_antidiag_torch,
 )
@@ -155,7 +165,8 @@ def test_engine_chunks_in_flight_match_bsw_align(dev):
     for k, (g, w) in enumerate(zip(got, tp.oracle(problems, 150))):
         assert tp.same_alignment(g, w), k
     assert eng.dispatches >= 3
-    assert len(eng._streams) == BswEngine.STREAMS > 1
+    assert [len(v) for v in eng._streams.values()] == [BswEngine.STREAMS]
+    assert BswEngine.STREAMS > 1
 
 
 @pytest.mark.parametrize("traceback,fetch", [
@@ -305,3 +316,47 @@ def test_cuda_create_matches_native(dev, tmp_path, corpus):
             str(tmp_path / device) + ".blocks", ml + ".isize",
             sl + ".isize")]
     assert out["cuda"] == out["native"]
+
+
+@pytest.mark.parametrize("band", [30, 150])
+def test_arena_gather_matches_plain_and_host(dev, band):
+    """The gather kernel on the arena soak: bit for bit the plain
+    version's bytes and the host's packed windows."""
+    contigs, problems = tp.arena_problems(256)
+    arena, cols, a_pk, b_pk, xw = tp.arena_chunk(contigs, problems, band)
+    args = (torch.from_numpy(arena), torch.from_numpy(cols), band,
+            a_width(xw, band), xw)
+    n0 = arena_gather.launches
+    ga, gb = gather_windows(args[0].to(dev), args[1].to(dev), *args[2:])
+    torch.cuda.synchronize()
+    assert arena_gather.launches == n0 + 1
+    pa, pb = gather_windows_torch(*args)
+    assert torch.equal(ga.cpu(), pa) and torch.equal(gb.cpu(), pb)
+    assert torch.equal(pa, torch.from_numpy(a_pk))
+    assert torch.equal(pb, torch.from_numpy(b_pk))
+
+
+@pytest.mark.parametrize("kernel", ["antidiag", "row"])
+@pytest.mark.parametrize("fetch", ["lean", "edits"])
+def test_arena_engine_matches_bsw_align(dev, kernel, fetch):
+    contigs, problems = tp.arena_problems(256)
+    eng = BswEngine(dev, fetch=fetch, kernel=kernel)
+    eng.register_contigs(contigs)
+    n0 = arena_gather.launches
+    got = eng.align_many(problems)
+    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, 150))):
+        assert tp.same_alignment(g, w), k
+    assert arena_gather.launches - n0 == eng.arena_chunks > 0
+    assert 0 < eng.arena_problems < eng.util["live"]
+
+
+@pytest.mark.parametrize("kw", [{}, {"kernel": "row"}, {"traceback": "host"}],
+                         ids=["antidiag", "row", "host"])
+def test_engine_over_two_shards_matches_one_device(dev, kw):
+    problems = tp.soak_problems(256)
+    want = BswEngine(dev, fetch="edits", **kw).align_many(problems)
+    eng = BswEngine((dev, dev), fetch="edits", **kw)
+    got = eng.align_many(problems)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert tp.same_alignment(g, w), k
+    assert min(eng.shard_runs) > 0

@@ -13,6 +13,10 @@ banded-SW helpers reach the shared host code only through the port.
 - tie_problems: find-max candidates that tie (last row and diagonal);
 - pack_problems: problems -> the forward kernel's numpy inputs, one
   window bucket;
+- arena_problems / arena_chunk: soak problems over contigs registered
+  with the engine's sequence arena (reverse orientations, unregistered
+  tail slices, N runs), and one bucket of them as the arena gather's
+  inputs beside the host's packed windows;
 - oracle / same_alignment: the exact host aligner's results and the
   equality the engine is held to;
 - junction_corpus: the corpus of
@@ -191,6 +195,63 @@ def pack_problems(problems, band: int):
     eng = BswEngine(torch.device("cpu"), band=band)
     a_pk, b_pk, scal = eng._pack_chunk(list(range(len(preps))), preps, xw)
     return a_pk, b_pk, scal, preps, xw
+
+
+def arena_problems(n: int = 256, seed: int = 29, max_len: int = 500):
+    """soak_problems' draws over contigs for the sequence arena:
+    (contigs to register, problems).  Each problem's a and b are
+    registered contigs, about a quarter each as its reverse complement
+    (the port's memoised io.fasta.reverse_complement, which the arena
+    serves from the base's codes); about one in ten takes an
+    unregistered tail slice as b.  A fifth of the a contigs get a run of
+    N; begin_a < band, a windows running past a contig's end (the
+    soak's end_b past len(b) too) and odd arena offsets (odd lengths)
+    come from the soak's draws."""
+    from gam_ngs_tpu_torch.io.fasta import reverse_complement
+
+    rng = np.random.default_rng(seed)
+    contigs, problems = [], []
+    for a, ba, ea, b, bb, eb, fs, fe in soak_problems(n, seed, max_len):
+        if rng.random() < 0.2:
+            a = a.copy()
+            s = int(rng.integers(0, len(a)))
+            a[s:s + int(rng.integers(1, 40))] = 4
+        contigs += [a, b]
+        if rng.random() < 0.25:
+            a = reverse_complement(a)
+        if rng.random() < 0.25:
+            b = reverse_complement(b)
+        if rng.random() < 0.1 and len(b) > 4:
+            b = b[int(rng.integers(1, len(b) // 2)):].copy()
+            bb = min(bb, len(b) - 1)
+        problems.append((a, ba, ea, b, bb, eb, fs, fe))
+    return contigs, problems
+
+
+def arena_chunk(contigs, problems, band: int):
+    """The problems whose two sequences the arena holds, as one bucket in
+    both layouts: (arena_pk, cols, a_pk, b_pk, xw), the engine's packed
+    arena and (12, B) int32 arena columns (the gather's inputs), and the
+    host's packed windows of the same problems (BswEngine._pack_chunk +
+    _pack4), all numpy."""
+    import torch
+
+    from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
+    from gam_ngs_tpu_torch.ops.bsw_host import _pad_dim, _prepare
+
+    eng = BswEngine(torch.device("cpu"), band=band)
+    eng.register_contigs(contigs)
+    preps = [p for p in (_prepare(*pr, band) for pr in problems)
+             if not p.empty]
+    for p in preps:
+        p.a_arena, p.b_arena = eng._seq_lookup(p.a), eng._seq_lookup(p.b)
+    preps = [p for p in preps if p.a_arena and p.b_arena]
+    xw = max(_pad_dim(p.x_size) for p in preps)
+    chunk = list(range(len(preps)))
+    a_pk, b_pk, _scal = eng._pack_chunk(chunk, preps, xw)
+    cols = eng._pack_chunk_arena(chunk, preps, xw)
+    arena = eng._arena_packed(torch.device("cpu")).numpy()
+    return arena, cols, a_pk, b_pk, xw
 
 
 READ_LEN, INSERT = 50, 200
