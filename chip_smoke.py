@@ -30,7 +30,11 @@ Phases (all by default; any failure raises and exits non-zero):
           and 150 (tests/torch_problems.py::arena_problems: forward and
           reverse-complement orientations, unregistered tail slices,
           begin_a < band, windows past a contig's end, N runs, odd
-          offsets); the arena engine against the oracle on that soak,
+          offsets) and on tests/torch_problems.py::arena_phase_problems
+          at the same bands (every nibble phase of each window's start
+          in both orientations, both clips, windows that reach the last
+          code of a 2^20-code arena); the arena engine against the
+          oracle on the soak,
           both forwards in lean and edits fetch; the engine over
           (cuda:0, cuda:0) against the one-device engine and the oracle
           on all three paths
@@ -105,9 +109,11 @@ Phases (all by default; any failure raises and exits non-zero):
           then the row forward at bands 300, 511, 700 and 2000, XW 4096,
           and at band 150 on one 5 Mbp chunk's shape (XW 32768, x_size
           25000), each with ns a row, bound and multiple; the arena
-          gather on that chunk shape (B=64; 20 calls queued behind a
-          sleep, as its launch outlasts it), its bound and multiple,
-          beside the host packing + upload it replaces
+          gather on that chunk shape and at XW 4096 (B=64; 20 calls
+          queued behind a sleep, as its launch outlasts it), its bound
+          and multiple, the host microseconds of a call (median of 50),
+          its plain version, the host packing + upload it replaces, and
+          its ptxas registers and spills
 
 Imports nothing of JAX and nothing of gam_ngs_tpu: the corpora come from
 tests/torch_problems.py, the rest from the port.
@@ -361,12 +367,19 @@ def gather_vs_plain(res, args, host, label) -> None:
 def phase_arena_parity(res):
     """The gather kernel on the arena soak at bands 30 and 150 (forward and
     reverse-complement orientations, unregistered tail slices, begin_a <
-    band, windows past a contig's end, N runs, odd offsets), then the
-    arena engine and the engine over two shards of one card."""
+    band, windows past a contig's end, N runs, odd offsets) and on the
+    phase set at the same bands (every nibble phase of each window's
+    start in both orientations, both clips, windows that reach the last
+    code of a 2^20-code arena), then the arena engine and the engine
+    over two shards of one card."""
     for band in (30, 150):
         contigs, problems = tp.arena_problems(256)
         args, host = gather_inputs(problems, contigs, band)
         gather_vs_plain(res, args, host, f"[parity] arena soak band={band}")
+        contigs, problems = tp.arena_phase_problems(band)
+        args, host = gather_inputs(problems, contigs, band)
+        gather_vs_plain(res, args, host,
+                        f"[parity] arena phase set band={band}")
     contigs, problems = tp.arena_problems(256)
     want = tp.oracle(problems, 150)
     for kernel in ("antidiag", "row"):
@@ -1414,16 +1427,38 @@ def phase_timing(res, card):
     time_gather(res, card)
 
 
-def time_gather(res, card) -> None:
-    """gather_windows at B=64 on one 5 Mbp chunk's shape (XW 32768,
-    x_size 25000, band 150): its device time a call (queued_ms; the
-    CUDA-event median of one call, which includes the launch, beside it)
-    against its bound (bytes: the windows written, the columns and the
-    arena codes the windows hold, read once) and one call of its plain
-    version; and the host packing + upload of the same chunk (_pack_chunk
-    + _pack4 + three copies to the card), the work the arena replaces."""
-    band, xw = 150, 32768
-    problems = timing_problems(xw, band, fixed=25000)
+def ptxas_lines(build_log: str, kernel: str) -> list[str]:
+    """ptxas' register and spill lines of the entry points whose mangled
+    name holds `kernel`, from one build's nvcc output."""
+    out, on = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            on = kernel in line
+        elif on and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
+def host_us(fn, reps=50) -> float:
+    """Median host microseconds of one call, no synchronise inside."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def gather_case(xw, fixed=0, band=150):
+    """B=64 timing problems (timing_problems) registered as a sequence
+    arena on the card: (the gather's arguments, the host's packed
+    windows, the bytes of its bound, (engine, preps, chunk)).  The bound
+    counts the windows written, the columns and the arena codes the
+    windows hold (each problem's in-range a and b codes), read once."""
+    problems = timing_problems(xw, band, fixed=fixed)
     eng = BswEngine(DEV, band=band)
     eng.register_contigs([p[0] for p in problems] + [p[3] for p in problems])
     preps = [_prepare(*p, band) for p in problems]
@@ -1431,43 +1466,67 @@ def time_gather(res, card) -> None:
         p.a_arena, p.b_arena = eng._seq_lookup(p.a), eng._seq_lookup(p.b)
     chunk = list(range(len(preps)))
     cols = eng._pack_chunk_arena(chunk, preps, xw)
-    args = (eng._arena_packed(DEV), *to_dev(cols), band, a_width(xw, band),
-            xw)
-    t = {}
-    one_ms, got = cuda_ms(lambda: gather_windows(*args))
-    t["arena_gather"] = queued_ms(lambda: gather_windows(*args))
-    plain = timed_once(t, "arena_gather_plain",
-                       lambda: gather_windows_torch(*args))
+    aw = a_width(xw, band)
+    args = (eng._arena_packed(DEV), *to_dev(cols), band, aw, xw)
     host = eng._pack_chunk(chunk, preps, xw)[:2]
-    note_err(res, "[timing] arena_gather B=64 XW=32768",
-             {"arena_gather": max_err(got, plain)})
-    if not all(np.array_equal(g.cpu().numpy(), h)
-               for g, h in zip(got, host)):
-        raise AssertionError("[timing] the gather's windows differ from "
-                             "the host's packed windows")
-    # arena codes the windows hold: each problem's in-range a and b codes
     held = sum(min(p.a_arena[1], p.begin_a - band + p.x_size + 2 * band)
                - max(0, p.begin_a - band) + p.x_size for p in preps)
-    n_bytes = nbytes(*got, args[1]) + held // 2
-    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a_pk, b_pk, scal = eng._pack_chunk(chunk, preps, xw)
-        to_dev(a_pk, b_pk, scal)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = t["arena_gather"]
-    log(f"[timing] {card} | B=64 band={band} XW={xw} x_size=25000 "
-        f"arena_gather: {ms:.4f} ms a call on the card (20 calls queued "
-        f"behind a sleep; one call between CUDA events, its launch "
-        f"included: {one_ms:.4f} ms, median of 5), bound {b_ms:.6f} ms "
-        f"(bytes, {n_bytes} B), {ms / b_ms:.1f}x it; plain "
-        f"{t['arena_gather_plain']:.4f} ms; the host packing + upload it "
-        f"replaces: {statistics.median(times):.4f} ms (host clock, median "
-        f"of 5)")
-    res["timing_gather"] = (ms, t["arena_gather_plain"], b_ms)
+    n_bytes = cols.shape[1] * (aw + xw) // 2 + cols.nbytes + held // 2
+    return args, host, n_bytes, (eng, preps, chunk)
+
+
+def time_gather(res, card) -> None:
+    """gather_windows at B=64, band 150, on one 5 Mbp chunk's shape (XW
+    32768, x_size 25000) and at XW 4096: its device time a call
+    (queued_ms; the CUDA-event median of one call, which includes the
+    launch, beside it) against its bound (bytes: gather_case) and one
+    call of its plain version; the host microseconds of one call (no
+    synchronise, median of 50); on the chunk shape, the host packing +
+    upload of the same chunk (_pack_chunk + _pack4 + three copies to the
+    card), the work the arena replaces; and the kernel's ptxas lines."""
+    band = 150
+    for xw, fixed in ((32768, 25000), (4096, 0)):
+        args, host, n_bytes, (eng, preps, chunk) = gather_case(xw, fixed)
+        t = {}
+        one_ms, got = cuda_ms(lambda: gather_windows(*args))
+        t["arena_gather"] = queued_ms(lambda: gather_windows(*args))
+        plain = timed_once(t, "arena_gather_plain",
+                           lambda: gather_windows_torch(*args))
+        note_err(res, f"[timing] arena_gather B=64 XW={xw}",
+                 {"arena_gather": max_err(got, plain)})
+        if not all(np.array_equal(g.cpu().numpy(), h)
+                   for g, h in zip(got, host)):
+            raise AssertionError(f"[timing] XW={xw}: the gather's windows "
+                                 f"differ from the host's packed windows")
+        us = host_us(lambda: gather_windows(*args))
+        b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ms = t["arena_gather"]
+        extra = ""
+        if xw == 32768:
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a_pk, b_pk, scal = eng._pack_chunk(chunk, preps, xw)
+                to_dev(a_pk, b_pk, scal)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            extra = (f"; the host packing + upload it replaces: "
+                     f"{statistics.median(times):.4f} ms (host clock, "
+                     f"median of 5)")
+            res["timing_gather"] = (ms, t["arena_gather_plain"], b_ms)
+        log(f"[timing] {card} | B=64 band={band} XW={xw} x_size="
+            f"{fixed or 'in [0.8 XW, XW)'} arena_gather: {ms:.4f} ms a call "
+            f"on the card (20 calls queued behind a sleep; one call "
+            f"between CUDA events, its launch included: {one_ms:.4f} ms, "
+            f"median of 5), bound {b_ms:.6f} ms (bytes, {n_bytes} B), "
+            f"{ms / b_ms:.1f}x it; host {us:.1f} us a call (median of "
+            f"50, no synchronise); plain "
+            f"{t['arena_gather_plain']:.4f} ms" + extra)
+        res[f"timing_gather_xw{xw}"] = (ms, b_ms, us)
+    lines = ptxas_lines(_build.build_log, "arena_gather_kernel")
+    log("[timing] arena_gather ptxas: " + ("; ".join(lines) or
+        "not built by this process (library found in _build/)"))
 
 
 def kernels_line(res) -> dict:

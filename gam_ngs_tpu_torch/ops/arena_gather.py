@@ -15,7 +15,12 @@ Inputs: arena_pk (n_codes/2,) uint8, two codes a byte (low nibble
 first), and cols (12, B) int32 rows a_ofs, a_len, a_rev, begin_a, end_a,
 b_ofs, b_len, b_rev, begin_b, x_size, force_start, force_end
 (BswEngine._pack_chunk_arena).  Outputs: a_pk (B, aw/2) and b_pk
-(B, xw/2) uint8, aw = bsw_antidiag.a_width(xw, band).
+(B, xw/2) uint8, aw = bsw_antidiag.a_width(xw, band).  The kernel reads
+and writes whole 16-byte chunks of 32 codes: aw and xw are multiples of
+32 (checked here), and on the card the arena is whole 16-byte words at a
+16-byte aligned address (BswEngine pads it to a multiple of 2^20 codes)
+and B * (aw + xw) / 32 < 2^31; the entry point checks those, and
+launches nothing and returns -1, which raises ValueError here.
 """
 
 from __future__ import annotations
@@ -74,7 +79,11 @@ def _kernel():
 def gather_windows(arena_pk, cols, band: int, aw: int, xw: int):
     """The packed a and b windows of B arena problems -> (a_pk (B, aw/2),
     b_pk (B, xw/2)) uint8.  CUDA tensors launch the kernel (or raise);
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version.  Rows are whole 16-byte chunks
+    on every device: aw and xw are multiples of 32 codes."""
+    if aw % 32 or xw % 32:
+        raise ValueError(f"window widths {aw}, {xw}: want multiples of 32 "
+                         f"codes")
     if arena_pk.device.type == "cpu":
         return gather_windows_torch(arena_pk, cols, band, aw, xw)
     if arena_pk.device.type != "cuda":
@@ -91,10 +100,6 @@ def gather_windows(arena_pk, cols, band: int, aw: int, xw: int):
                          f"got {cols.dtype} {tuple(cols.shape)} on "
                          f"{cols.device}")
     B = cols.shape[1]
-    # the kernel writes whole 4-byte words (8 codes), a grid row a problem
-    if aw % 8 or xw % 8 or B > 65535:
-        raise ValueError(f"window widths {aw}, {xw} (multiples of 8 codes) "
-                         f"or {B} problems (at most 65535)")
     a_pk = torch.empty((B, aw // 2), dtype=torch.uint8, device=dev)
     b_pk = torch.empty((B, xw // 2), dtype=torch.uint8, device=dev)
     if B == 0:
@@ -104,6 +109,13 @@ def gather_windows(arena_pk, cols, band: int, aw: int, xw: int):
         err = _kernel()(arena_pk.data_ptr(), 2 * arena_pk.numel(),
                         cols.data_ptr(), B, band, aw // 2, xw // 2,
                         a_pk.data_ptr(), b_pk.data_ptr(), stream)
+    if err == -1:  # the entry point's own checks: nothing launched
+        raise ValueError(f"arena_gather: want an arena of whole 16-byte "
+                         f"words at a 16-byte aligned address (got "
+                         f"{arena_pk.numel()} bytes at "
+                         f"{arena_pk.data_ptr():#x}) and fewer than 2^31 "
+                         f"chunks of 32 codes ({B} problems of {aw} + {xw} "
+                         f"codes)")
     if err:
         raise RuntimeError(f"arena_gather launch failed: CUDA error {err}")
     global launches

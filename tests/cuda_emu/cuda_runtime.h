@@ -31,6 +31,9 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
       : x(x_), y(y_), z(z_) {}
 };
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
@@ -113,4 +116,13 @@ T __ldg(const T* p) {
 }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned sh) {
   return (unsigned)(((((unsigned long long)hi) << 32) | lo) >> (sh & 31));
+}
+// prmt's default mode: byte n of the result is byte (s >> 4n) & 7 of the
+// pair y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n);
+  return r;
 }

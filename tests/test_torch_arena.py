@@ -1,10 +1,13 @@
 """The resident sequence arena of the port (GAM_ARENA=1) on the CPU: the
 window gather's plain version (ops/arena_gather.py) and its CUDA source
 (csrc/arena_gather.cu, compiled by g++ against tests/cuda_emu's stand-in
-runtime) against the host's packed windows, the arena engine against bsw_align and against the JAX
-engine's arena (Pallas in interpret mode), its upload count against the
-JAX engine's, and whole merges under GAM_ARENA=1 against the port's
-default merge.  Windows are bytes and alignments integers: exact
+runtime) against the host's packed windows, on the arena soak and on
+tp.arena_phase_problems (every nibble phase, both orientations, both
+clips, the arena's last code); sources with one step of the kernel
+broken, which must fail there; the arena engine against bsw_align and
+against the JAX engine's arena (Pallas in interpret mode), its upload
+count against the JAX engine's, and whole merges under GAM_ARENA=1
+against the port's default merge.  Windows are bytes and alignments integers: exact
 equality throughout."""
 
 import ctypes
@@ -69,15 +72,16 @@ def test_gather_matches_host_packing(band, seed):
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-@pytest.fixture(scope="module")
-def gather_emulated(tmp_path_factory):
-    """arena_gather of csrc/arena_gather.cu, built for the host."""
+SOURCE = os.path.join(HERE, os.pardir, "gam_ngs_tpu_torch", "csrc",
+                      "arena_gather.cu")
+
+
+def build_emulated(src: str, tmp):
+    """arena_gather of a kernel source, built for the host against
+    tests/cuda_emu's stand-in runtime."""
     gxx = shutil.which("g++")
     assert gxx, "g++ builds the port's native code; it is needed here too"
-    src = open(os.path.join(HERE, os.pardir, "gam_ngs_tpu_torch", "csrc",
-                            "arena_gather.cu")).read()
     src = re.sub(r"([\w:]+)<<<(.*?)>>>\(", r"emu::launch(\1, \2, ", src)
-    tmp = tmp_path_factory.mktemp("arena_emu")
     cc, so = tmp / "arena_gather_host.cc", tmp / "libarena_gather_host.so"
     cc.write_text(src)
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-fwrapv", "-pthread",
@@ -93,22 +97,145 @@ def gather_emulated(tmp_path_factory):
     return fn
 
 
-@pytest.mark.parametrize("band", [20, 30])
-def test_gather_kernel_source_matches_host_packing(gather_emulated, band):
-    """The kernel's own code (grid, word layout, sentinels, orientation)
-    run on the host: the host's packed windows on a small arena soak."""
-    contigs, problems = tp.arena_problems(24, seed=band, max_len=200)
-    arena, cols, a_pk, b_pk, xw = tp.arena_chunk(contigs, problems, band)
+@pytest.fixture(scope="module")
+def gather_emulated(tmp_path_factory):
+    """arena_gather of csrc/arena_gather.cu, built for the host."""
+    return build_emulated(open(SOURCE).read(),
+                          tmp_path_factory.mktemp("arena_emu"))
+
+
+def run_emulated(fn, arena, cols, band, a_pk, b_pk):
+    """The emulated kernel's (a, b) windows, into buffers of the host
+    windows' shapes that start as 0xAA."""
     cols = np.ascontiguousarray(cols)
     a_out = np.full_like(a_pk, 0xAA)
     b_out = np.full_like(b_pk, 0xAA)
-    err = gather_emulated(arena.ctypes.data, 2 * len(arena),
-                          cols.ctypes.data, cols.shape[1], band,
-                          a_pk.shape[1], b_pk.shape[1], a_out.ctypes.data,
-                          b_out.ctypes.data, None)
+    err = fn(arena.ctypes.data, 2 * len(arena), cols.ctypes.data,
+             cols.shape[1], band, a_pk.shape[1], b_pk.shape[1],
+             a_out.ctypes.data, b_out.ctypes.data, None)
     assert err == 0
+    return a_out, b_out
+
+
+@pytest.mark.parametrize("band", [20, 30])
+def test_gather_kernel_source_matches_host_packing(gather_emulated, band):
+    """The kernel's own code (grid, chunk layout, sentinels, orientation)
+    run on the host: the host's packed windows on a small arena soak."""
+    contigs, problems = tp.arena_problems(24, seed=band, max_len=200)
+    arena, cols, a_pk, b_pk, xw = tp.arena_chunk(contigs, problems, band)
+    a_out, b_out = run_emulated(gather_emulated, arena, cols, band, a_pk,
+                                b_pk)
     assert np.array_equal(a_out, a_pk) and np.array_equal(b_out, b_pk)
     assert (cols[2] == 1).any() and (cols[7] == 1).any()
+
+
+def test_gather_kernel_source_refuses_misaligned_arguments(
+        gather_emulated):
+    """The entry point launches nothing and returns -1 (the wrapper's
+    ValueError) for an arena or rows that are not whole, aligned 16-byte
+    chunks; no problems is a launch of nothing."""
+    contigs, problems = tp.arena_problems(8, seed=3, max_len=120)
+    arena, cols, a_pk, b_pk, _xw = tp.arena_chunk(contigs, problems, 20)
+    a_out, b_out = np.zeros_like(a_pk), np.zeros_like(b_pk)
+    B, a_bytes, b_bytes = cols.shape[1], a_pk.shape[1], b_pk.shape[1]
+    good = (arena.ctypes.data, 2 * len(arena), cols.ctypes.data, B, 20,
+            a_bytes, b_bytes, a_out.ctypes.data, b_out.ctypes.data, None)
+    for k, bad in ((0, arena.ctypes.data + 8), (1, 2 * len(arena) - 2),
+                   (5, a_bytes - 8), (6, b_bytes + 4),
+                   (7, a_out.ctypes.data + 4)):
+        assert gather_emulated(*good[:k], bad, *good[k + 1:]) == -1
+    assert not a_out.any() and not b_out.any()
+    assert gather_emulated(*good[:3], 0, *good[4:]) == 0
+
+
+def phase_chunk(band):
+    """tp.arena_phase_problems as one arena bucket (tp.arena_chunk)."""
+    return tp.arena_chunk(*tp.arena_phase_problems(band), band)
+
+
+@pytest.mark.parametrize("band", [30, 150])
+def test_gather_phase_set_holds_every_case(band):
+    """The phase set holds each case the kernel tells apart: all 32
+    nibble phases of each window's first arena code in each orientation,
+    a windows from before position 0 and past a's end, widths that end
+    mid-chunk, padding rows (all fill), and windows that reach the last
+    code of an arena of exactly 2^20 codes."""
+    arena, cols, _a_pk, _b_pk, xw = phase_chunk(band)
+    assert 2 * len(arena) == tp.ARENA_MIN
+    (a_ofs, a_len, a_rev, begin_a, _ea, b_ofs, b_len, b_rev, begin_b,
+     x_size) = cols[:10].astype(np.int64)
+    live = x_size > 0
+    assert live.sum() < len(x_size)  # padding rows
+    for ofs, ln, rev, start in ((a_ofs, a_len, a_rev, begin_a - band),
+                                (b_ofs, b_len, b_rev, begin_b)):
+        first = np.where(rev == 1, ofs + ln - 32 - start, ofs + start) & 31
+        for r in (0, 1):
+            assert set(first[live & (rev == r)]) == set(range(32))
+        assert (ofs + ln == tp.ARENA_MIN)[live].any()
+    for r in (0, 1):
+        sel = live & (a_rev == r)
+        assert (begin_a < band)[sel].any() and (begin_a >= band)[sel].any()
+        assert (begin_a + band + x_size > a_len)[sel].any()
+    assert (x_size % 32 != 0)[live].any()
+    assert ((x_size + 2 * band) % 32 != 0)[live].any()
+    assert (x_size[live] < xw).all()
+    codes = np.concatenate([arena & 15, arena >> 4])
+    assert (codes == 4).any()  # N, which the complement keeps
+
+
+@pytest.mark.parametrize("band", [30, 150])
+def test_gather_plain_matches_host_packing_on_phase_set(band):
+    arena, cols, a_pk, b_pk, xw = phase_chunk(band)
+    ga, gb = gather_windows(torch.from_numpy(arena), torch.from_numpy(cols),
+                            band, a_width(xw, band), xw)
+    assert np.array_equal(ga.numpy(), a_pk)
+    assert np.array_equal(gb.numpy(), b_pk)
+
+
+@pytest.mark.parametrize("band", [30, 150])
+def test_gather_kernel_source_matches_host_packing_on_phase_set(
+        gather_emulated, band):
+    arena, cols, a_pk, b_pk, _xw = phase_chunk(band)
+    a_out, b_out = run_emulated(gather_emulated, arena, cols, band, a_pk,
+                                b_pk)
+    assert np.array_equal(a_out, a_pk) and np.array_equal(b_out, b_pk)
+
+
+# (old text, new text): each breaks one step of the kernel's design
+MUTATIONS = {
+    "phase_off_by_one_nibble": ("(unsigned)i & 31u",
+                                "((unsigned)i + 1u) & 31u"),
+    "reverse_without_nibble_swap": (
+        "return ((x >> 4) & 0x0F0F0F0Fu) | ((x & 0x0F0F0F0Fu) << 4);",
+        "return x;"),
+    "complement_every_code": ("~((x >> 2) | (x >> 3)) & 0x11111111u",
+                              "0x11111111u"),
+    "mask_one_nibble_long": ("low_nibbles(jh - 8 * k)",
+                             "low_nibbles(jh + 1 - 8 * k)"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(MUTATIONS))
+def test_gather_kernel_source_mutation_fails(tmp_path, mutation):
+    """A kernel source with one step broken gives other bytes than the
+    host's on the phase set, so the emulated test would catch it."""
+    old, new = MUTATIONS[mutation]
+    src = open(SOURCE).read()
+    assert src.count(old) == 1
+    fn = build_emulated(src.replace(old, new), tmp_path)
+    band = 30
+    arena, cols, a_pk, b_pk, _xw = phase_chunk(band)
+    a_out, b_out = run_emulated(fn, arena, cols, band, a_pk, b_pk)
+    assert not (np.array_equal(a_out, a_pk) and np.array_equal(b_out, b_pk))
+
+
+def test_gather_rejects_widths_off_the_chunk():
+    contigs, problems = tp.arena_problems(8)
+    arena, cols, *_rest, xw = tp.arena_chunk(contigs, problems, 20)
+    args = (torch.from_numpy(arena), torch.from_numpy(cols), 20)
+    for aw, w in ((a_width(xw, 20) - 8, xw), (a_width(xw, 20), xw + 16)):
+        with pytest.raises(ValueError, match="multiples of 32"):
+            gather_windows(*args, aw, w)
 
 
 def test_gather_shapes_and_device_check():

@@ -336,6 +336,27 @@ def test_arena_gather_matches_plain_and_host(dev, band):
     assert torch.equal(pb, torch.from_numpy(b_pk))
 
 
+@pytest.mark.parametrize("band", [30, 150])
+def test_arena_gather_phase_set_matches_plain_and_host(dev, band):
+    """The gather kernel on tp.arena_phase_problems (every nibble phase,
+    both orientations, both clips, the 2^20-code arena's last code): bit
+    for bit the plain version's bytes and the host's packed windows; a
+    misaligned arena or width raises."""
+    arena, cols, a_pk, b_pk, xw = tp.arena_chunk(
+        *tp.arena_phase_problems(band), band)
+    args = (torch.from_numpy(arena).to(dev), torch.from_numpy(cols).to(dev),
+            band, a_width(xw, band), xw)
+    ga, gb = gather_windows(*args)
+    pa, pb = gather_windows_torch(*args)
+    assert torch.equal(ga, pa) and torch.equal(gb, pb)
+    assert torch.equal(ga.cpu(), torch.from_numpy(a_pk))
+    assert torch.equal(gb.cpu(), torch.from_numpy(b_pk))
+    with pytest.raises(ValueError, match="16-byte"):
+        gather_windows(args[0][1:], *args[1:])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        gather_windows(*args[:3], a_width(xw, band) + 8, xw)
+
+
 @pytest.mark.parametrize("kernel", ["antidiag", "row"])
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
 def test_arena_engine_matches_bsw_align(dev, kernel, fetch):

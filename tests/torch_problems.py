@@ -228,6 +228,65 @@ def arena_problems(n: int = 256, seed: int = 29, max_len: int = 500):
     return contigs, problems
 
 
+ARENA_MIN = 1 << 20  # BswEngine._arena_packed pads to multiples of this
+
+
+def arena_phase_problems(band: int, seed: int = 37):
+    """Arena problems for every case the gather kernel tells apart:
+    (contigs to register, in this order, problems).
+
+    For each orientation pair of (a, b), forward or the memoised reverse
+    complement, 32 problems on one a contig and one b contig whose
+    begin_a and begin_b step by one, so the nibble phase of each window's
+    first arena code takes all 32 values in each orientation.  Half the a
+    windows start before position 0 (begin_a < band); b is longer than a,
+    so x_size is often cut at a's end and the a window runs past it;
+    x_size drifts, so windows end mid-chunk.  The contigs (with N runs)
+    fill an arena of exactly ARENA_MIN codes after one filler contig, and
+    the last contig ends at the arena's last code: problems on it read
+    past the arena's end (a forward past its end, a reversed from before
+    its start, b reversed from its last code), which only clamped loads
+    may reach and the masks must hide."""
+    from gam_ngs_tpu_torch.io.fasta import reverse_complement
+
+    rng = np.random.default_rng(seed)
+
+    def contig(n):
+        c = rng.integers(0, 4, size=n).astype(np.uint8)
+        s = int(rng.integers(0, n - 12))
+        c[s:s + int(rng.integers(3, 12))] = 4
+        return c
+
+    shorts = [contig(int(rng.integers(120, 200))) for _ in range(4)]
+    longs = [contig(int(rng.integers(260, 320))) for _ in range(4)]
+    last = contig(300)
+    used = sum(map(len, shorts + longs)) + len(last)
+    filler = rng.integers(0, 5, size=ARENA_MIN - used).astype(np.uint8)
+    problems = []
+    for g, (ra, rb) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):
+        a = reverse_complement(shorts[g]) if ra else shorts[g]
+        b = reverse_complement(longs[g]) if rb else longs[g]
+        for k in range(32):
+            ba = band - 16 + k
+            bb = k
+            xs = 1 + (37 * k + 11 * g) % 250
+            problems.append((a, ba, len(a) - 1, b, bb, bb + xs - 1,
+                             k % 5 == 0, k % 7 == 0))
+    n = len(last)
+    rc_last = reverse_complement(last)
+    for k in range(4):
+        # a forward past the arena's end; a reversed from before 0
+        problems.append((last, n - 40 + k, n - 1, longs[k], k, 280,
+                         False, False))
+        problems.append((rc_last, k, n - 1, longs[k], k, 200, False, False))
+        # b reversed from the arena's last code; b forward to it
+        problems.append((shorts[k], band, len(shorts[k]) - 1, rc_last, 0,
+                         100 + k, False, False))
+        problems.append((shorts[k], band + k, len(shorts[k]) - 1, last,
+                         n - 90 - k, n - 1, False, False))
+    return [filler, *shorts, *longs, last], problems
+
+
 def arena_chunk(contigs, problems, band: int):
     """The problems whose two sequences the arena holds, as one bucket in
     both layouts: (arena_pk, cols, a_pk, b_pk, xw), the engine's packed

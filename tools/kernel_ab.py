@@ -1,8 +1,9 @@
 """Time this tree's anti-diagonal forward and walk kernels (or, with
---row, its row-form forward) against another version's, on one CUDA GPU,
-in turns.
+--row, its row-form forward; with --gather, its arena window gather)
+against another version's, on one CUDA GPU, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--row] [--reps 5] [--out FILE]
+    python3 tools/kernel_ab.py --gather DIR [--out FILE]
 
 DIR holds the other version's bsw_antidiag.cu and bsw_walk.cu (for
 example `git show <commit>:gam_ngs_tpu_torch/csrc/bsw_antidiag.cu` into
@@ -26,6 +27,19 @@ and 32768 (x_size 25000), and at bands 300 and 511 (--bands) in XW
 4096, timed base, this, this, base, their outputs held equal bit for
 bit; each time with its ns a row (the longest problem's rows), bound
 and multiple.
+
+--gather DIR (instead of --base): DIR holds the other version's
+arena_gather.cu (same C entry point) and, optionally, its
+arena_gather.py wrapper.  Both gathers run B=64 problems at band 150
+registered as a sequence arena (chip_smoke.py's gather_case) on one
+5 Mbp chunk's shape (XW 32768, x_size 25000), at XW 4096 and at XW 128
+(a few KB: what one queued launch costs at least), their bytes
+held equal to each other and to the host's packed windows, timed base,
+this, this, base, each turn the median of 3 chip_smoke.queued_ms runs
+(20 calls queued behind a sleep), beside the bound and each multiple;
+then the host microseconds of one wrapper call (no synchronise, median
+of 50; DIR's wrapper only when DIR has one), and two torch.empty against
+one torch.empty cut into two views, in turns, for the outputs.
 
 Imports nothing of JAX and nothing of gam_ngs_tpu.
 """
@@ -204,6 +218,103 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
     return res
 
 
+def gather_ab(base_dir: str, card: str) -> dict:
+    """This tree's arena_gather against DIR's, in turns."""
+    import importlib.util
+
+    from gam_ngs_tpu_torch.ops import arena_gather
+
+    this = arena_gather._kernel()
+    for line in chip_smoke.ptxas_lines(_build.build_log,
+                                       "arena_gather_kernel"):
+        print(f"[this] {line}")
+    res = {"card": card, "shapes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, log = build([os.path.join(base_dir, "arena_gather.cu")], tmp)
+        for line in chip_smoke.ptxas_lines(log, "arena_gather_kernel"):
+            print(f"[base] {line}")
+        base = lib.arena_gather
+        base.argtypes, base.restype = this.argtypes, this.restype
+        wrappers = {"this": arena_gather.gather_windows}
+        base_py = os.path.join(base_dir, "arena_gather.py")
+        if os.path.exists(base_py):
+            spec = importlib.util.spec_from_file_location("_ab_base_gather",
+                                                          base_py)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mod._fn = base  # its _kernel() returns this, builds nothing
+            wrappers["base"] = mod.gather_windows
+        for xw, fixed in ((32768, 25000), (4096, 0), (128, 0)):
+            args, host, n_bytes, _ctx = chip_smoke.gather_case(xw, fixed)
+            arena, cols, band, aw, _xw = args
+            B = cols.shape[1]
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def run(fn):
+                a_pk = torch.empty((B, aw // 2), dtype=torch.uint8,
+                                   device=DEV)
+                b_pk = torch.empty((B, xw // 2), dtype=torch.uint8,
+                                   device=DEV)
+                err = fn(arena.data_ptr(), 2 * arena.numel(),
+                         cols.data_ptr(), B, band, aw // 2, xw // 2,
+                         a_pk.data_ptr(), b_pk.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"arena_gather: CUDA error {err}")
+                return a_pk, b_pk
+
+            for turn, fn in (("base", base), ("this", this)):
+                got = run(fn)
+                if not all(np.array_equal(g.cpu().numpy(), h)
+                           for g, h in zip(got, host)):
+                    raise AssertionError(f"XW {xw}: the {turn} gather's "
+                                         f"windows differ from the host's")
+            b_ms = n_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+            ms: dict = {}
+            for turn in ("base", "this", "this", "base"):
+                fn = base if turn == "base" else this
+                ms.setdefault(turn, []).append(statistics.median(
+                    chip_smoke.queued_ms(lambda: run(fn)) for _ in range(3)))
+            us: dict = {}
+            for turn in ("base", "this", "this", "base"):
+                if turn in wrappers:
+                    us.setdefault(turn, []).append(chip_smoke.host_us(
+                        lambda: wrappers[turn](*args)))
+            alloc: dict = {}
+            n_a = B * aw // 2
+
+            def two():
+                return (torch.empty((B, aw // 2), dtype=torch.uint8,
+                                    device=DEV),
+                        torch.empty((B, xw // 2), dtype=torch.uint8,
+                                    device=DEV))
+
+            def one():
+                buf = torch.empty(B * (aw + xw) // 2, dtype=torch.uint8,
+                                  device=DEV)
+                return buf[:n_a].view(B, aw // 2), buf[n_a:].view(B, xw // 2)
+
+            for turn in ("two", "one", "one", "two"):
+                alloc.setdefault(turn, []).append(chip_smoke.host_us(
+                    two if turn == "two" else one))
+            def fmt(v, spec):
+                return ", ".join(format(t, spec) for t in v) or "not timed"
+
+            for turn, v in ms.items():
+                print(f"[ab] {card} | B={B} band={band} XW={xw} "
+                      f"arena_gather_{turn}: queued ms {fmt(v, '.5f')}; "
+                      f"bound {b_ms:.6f} ms (bytes, {n_bytes} B), "
+                      f"{statistics.mean(v) / b_ms:.2f}x it; wrapper host "
+                      f"us {fmt(us.get(turn, []), '.1f')}", flush=True)
+            print(f"[ab] {card} | XW={xw} output allocation host us: two "
+                  f"torch.empty {fmt(alloc['two'], '.1f')}; one "
+                  f"torch.empty + two views {fmt(alloc['one'], '.1f')}",
+                  flush=True)
+            res["shapes"][str(xw)] = {"ms": ms, "bound_ms": b_ms,
+                                      "bytes": n_bytes, "host_us": us,
+                                      "alloc_us": alloc}
+    return res
+
+
 def launch_ms(fn, reps: int) -> float:
     fn()  # warm-up
     times = []
@@ -220,7 +331,11 @@ def launch_ms(fn, reps: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True)
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--base", help="DIR of bsw_antidiag.cu, bsw_walk.cu "
+                      "(or bsw_row.cu with --row)")
+    mode.add_argument("--gather", help="DIR of arena_gather.cu (and, "
+                      "optionally, arena_gather.py)")
     ap.add_argument("--row", action="store_true",
                     help="time the row-form forward (DIR/bsw_row.cu)")
     ap.add_argument("--bands", default="300,511",
@@ -236,6 +351,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if args.gather:
+        _build.library()
+        line = json.dumps(gather_ab(args.gather, card))
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(line + "\n")
+        print(line)
+        return 0
     ops_rate = chip_smoke.int32_ops_per_s()
     if args.row:
         _build.library()
