@@ -1,7 +1,7 @@
 """Smoke run of gam_ngs_tpu_torch on one CUDA GPU.
 
     python3 chip_smoke.py [--phases header,build,parity,small,full,create,dist,
-                                    timing]
+                                    mesh,timing]
 
 Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
@@ -101,6 +101,23 @@ Phases (all by default; any failure raises and exits non-zero):
           rank that aligned launched the forward and the walk (both
           ranks on the split corpus); each rank's cells, launches, align
           seconds and peak RSS, and both walls
+  mesh    the sharded pipeline step and its dry-run (parallel/mesh.py,
+          parallel/step.py, entry.py): dryrun_step over every GPU and
+          over four shards of cuda:0 (statistics = numpy, total_best > 0,
+          the sharded engine = bsw_align), entry.dryrun_multichip over the
+          four shards (the device join, the sharded edge count, and
+          distributed_build_pctgs on the default engine and on the row
+          forward with the host traceback, each giving back the genome),
+          with the launch counts set to 0 just before and read just
+          after; entry()'s forward on the card = its plain version on
+          the CPU, bit for bit; then the step at full width over four
+          shards of the card (B=64, XW 32768, band 150, 5,000,000 reads
+          of 2 libraries): each shard's dirs, last row and diagonal = one
+          unsharded forward_antidiag call, bit for bit, the statistics
+          and total_best = numpy exactly; CUDA-event medians of 5 of the
+          whole step and of its statistics beside their bound and one
+          torch.bincount triple, and the peak memory of a shard and of
+          the step
   timing  each kernel with CUDA events (median of 5 after a warm-up)
           beside one call of its plain version, outputs compared bit for
           bit, and the walks over the two forwards' words compared with
@@ -146,7 +163,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import torch_problems as tp  # noqa: E402
-from gam_ngs_tpu_torch import _build, cli  # noqa: E402
+from gam_ngs_tpu_torch import _build, cli, entry  # noqa: E402
 from gam_ngs_tpu_torch.core.stats import isize_stats_psum  # noqa: E402
 from gam_ngs_tpu_torch.io import bamlist  # noqa: E402
 from gam_ngs_tpu_torch.io import isize as isize_io  # noqa: E402
@@ -185,9 +202,15 @@ from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
     walk,
     walk_torch,
 )
+from gam_ngs_tpu_torch.parallel.mesh import device_mesh  # noqa: E402
+from gam_ngs_tpu_torch.parallel.step import (  # noqa: E402
+    dryrun_step,
+    library_moments,
+    make_pipeline_step,
+)
 
 PHASES = ("header", "build", "parity", "small", "full", "create", "dist",
-          "timing")
+          "mesh", "timing")
 OUTPUTS = (".gam.fasta", ".pctgs", ".stats", ".noblocks.BF.fasta",
            ".noblocks.AF.fasta", ".notmerged.fasta")
 DEV = torch.device("cuda")
@@ -1267,6 +1290,147 @@ def phase_dist(tmp, res):
             "wall1": wall1, "wall2": wall2, "ranks": ranks}
 
 
+def mesh_dryruns(res) -> None:
+    """The step's dry-run over every GPU and over four shards of cuda:0,
+    and entry.dryrun_multichip over the four shards, with the launch
+    counts set to 0 just before and read just after; then entry()'s
+    forward on the card against its plain version on the CPU."""
+    n_gpu = torch.cuda.device_count()
+    shards = (DEV,) * 4
+    reset_launches()
+    t0 = time.time()
+    dryrun_step(device_mesh(n_gpu, "cuda"))
+    dryrun_step(shards)
+    entry.dryrun_multichip(4, devices=shards)
+    launches = BswEngine.kernel_launches()
+    res.setdefault("launches", {})["mesh"] = launches
+    if n_gpu == 1:
+        log("[mesh] one GPU: the dry-run across distinct cards needs a "
+            "machine with several; four shards of cuda:0 stand in")
+    log(f"[mesh] dryrun_step over {n_gpu} GPU(s) and over 4 shards of "
+        f"cuda:0 (statistics = numpy, total_best > 0, sharded engine = "
+        f"bsw_align); dryrun_multichip over 4 shards: the genome back on "
+        f"the default engine and on the row forward + host traceback; "
+        f"{time.time() - t0:.2f} s; launches {launches}")
+    if not all(launches[k] > 0 for k in ("bsw_antidiag", "bsw_row",
+                                         "bsw_walk")):
+        raise AssertionError(f"[mesh] dry-run launches {launches}")
+    fn, args = entry.entry()
+    got = fn(*args)
+    want = forward_antidiag_torch(*(a.cpu() for a in args),
+                                  fn.keywords["band"])
+    note_err(res, "[mesh] entry() B=4 XW=256 band=30 on the card vs plain "
+             "on the CPU", {"bsw_antidiag": max_err(
+                 [g.cpu() for g in got], want)})
+
+
+def phase_mesh(res, card):
+    """The dry-runs (mesh_dryruns), then the sharded step at full width:
+    the 5 Mbp merge's chunk shape (B=64, XW 32768, band 150,
+    timing_problems) and a read table of 5,000,000 reads (~ one side of
+    scale_columns(5.0, 2), the 50x create) of 2 libraries, isize uniform
+    in [150, 450), 90% masked in, over four shards of the card."""
+    mesh_dryruns(res)
+    band, xw, B, n_reads, n_libs = 150, 32768, 64, 5_000_000, 2
+    fargs, _fe, xw_b = packed_inputs(timing_problems(xw, band), band)
+    if xw_b != xw:
+        raise AssertionError(f"[mesh] problems fell in bucket {xw_b}")
+    rng = np.random.default_rng(23)
+    lib_id = rng.integers(0, n_libs, n_reads).astype(np.int32)
+    isize = rng.integers(150, 450, n_reads).astype(np.int32)
+    mask = rng.random(n_reads) < 0.9
+    reads = to_dev(lib_id, isize, mask)
+    shards = (DEV,) * 4
+    step = make_pipeline_step(shards, B, xw, a_width(xw, band), band,
+                              n_reads, n_libs)
+    sargs = (*fargs[:7], *reads)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = step(*sargs)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
+    launches = BswEngine.kernel_launches()
+    if launches["bsw_antidiag"] != len(shards):
+        raise AssertionError(f"[mesh] step launches {launches}")
+    one = forward_antidiag(*fargs)
+    for k, name in enumerate(("dirs", "last_row", "diag")):
+        if not torch.equal(torch.cat(out[k]), one[k]):
+            raise AssertionError(f"[mesh] the four shards' {name} differ "
+                                 f"from one forward_antidiag call")
+    want = np.zeros((3, n_libs))
+    for lib in range(n_libs):
+        sel = isize[mask & (lib_id == lib)].astype(np.int64)
+        want[:, lib] = (len(sel), sel.sum(), (sel * sel).sum())
+    best = int(one[1].cpu().numpy().max(1).astype(np.int64).sum())
+    for d in range(len(shards)):
+        got = np.stack([out[k][d].cpu().numpy() for k in (3, 4, 5)])
+        if not np.array_equal(got, want) or int(out[6][d]) != best:
+            raise AssertionError(f"[mesh] copy {d}: statistics "
+                                 f"{got.tolist()} against {want.tolist()}, "
+                                 f"total_best {int(out[6][d])} against "
+                                 f"{best}")
+
+    # one shard alone: its forward and its statistics
+    per, rper = B // len(shards), n_reads // len(shards)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forward_antidiag(*(v[:per] for v in fargs[:7]), band)
+    library_moments(*(v[:rper] for v in reads), n_libs)
+    torch.cuda.synchronize()
+    shard_peak = torch.cuda.max_memory_allocated() - base
+
+    step_ms, _ = cuda_ms(lambda: step(*sargs))
+    fwd_ms, _ = cuda_ms(lambda: step.forward(*fargs[:7]))
+    one_ms, _ = cuda_ms(lambda: forward_antidiag(*fargs))
+    stats_ms, _ = cuda_ms(lambda: step.statistics(*reads))
+    lib_d, isize_d, mask_d = reads
+    lib64 = lib_d.long()
+
+    def bincounts():
+        w = mask_d.to(torch.float64)
+        s = isize_d.to(torch.float64) * w
+        return torch.stack([torch.bincount(lib64, weights=v, minlength=n_libs)
+                            for v in (w, s, s * isize_d)])
+
+    bin_ms, bins = cuda_ms(bincounts)
+    if not np.array_equal(bins.cpu().numpy(), want):
+        raise AssertionError("[mesh] torch.bincount's statistics differ")
+    stats_bytes = 9 * n_reads  # lib_id i32, isize i32, mask bool: each once
+    stats_bound = stats_bytes / HBM_BYTES_PER_S * 1e3
+    cells = int(fargs[5].sum()) * (2 * band + 1)
+    # the step: the forward's bytes and int32 operations (bound()) plus
+    # the statistics' bytes
+    step_bytes = nbytes(*fargs[:7], *one) + stats_bytes
+    t_bytes = step_bytes / HBM_BYTES_PER_S
+    t_ops = cells * OPS_PER_CELL / int32_ops_per_s()
+    step_bound = max(t_bytes, t_ops) * 1e3
+    step_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[mesh] full-width step over 4 shards of cuda:0 (B=64, XW={xw}, "
+        f"band={band}, {n_reads} reads, {n_libs} libraries): each shard's "
+        f"dirs, last row and diagonal = one forward_antidiag call bit for "
+        f"bit, statistics and total_best ({best}) = numpy exactly, "
+        f"{launches['bsw_antidiag']} forward launches")
+    log(f"[mesh] {card} | step {step_ms:.4f} ms ({cells} band cells, "
+        f"{cells / (step_ms * 1e-3) / 1e9:.3f} GCUPS), bound "
+        f"{step_bound:.6f} ms ({step_by}), {step_ms / step_bound:.1f}x it; "
+        f"its forward over the 4 shards {fwd_ms:.4f} ms against one "
+        f"unsharded forward_antidiag call {one_ms:.4f} ms; statistics "
+        f"{stats_ms:.4f} ms, bound {stats_bound:.6f} ms (bytes, "
+        f"{stats_bytes} B), {stats_ms / stats_bound:.1f}x it; "
+        f"torch.bincount triple {bin_ms:.4f} ms (CUDA-event medians of 5)")
+    log(f"[mesh] {card} | peak memory: one shard "
+        f"{shard_peak / 2**20:.1f} MiB, the step over 4 shards "
+        f"{step_peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated "
+        f"above the inputs)")
+    res["mesh"] = {"step_ms": step_ms, "step_bound_ms": step_bound,
+                   "stats_ms": stats_ms, "stats_bound_ms": stats_bound,
+                   "bincount_ms": bin_ms}
+
+
 def timing_problems(xw, band, B=64, seed=11, fixed=0):
     """B problems of x_size in [0.8 xw, xw) (at most: b is a mutated copy
     of a), or of x_size `fixed` exactly (b topped up with random codes)."""
@@ -1596,6 +1760,8 @@ def main() -> int:
             phase_create()
         if "dist" in phases:
             phase_dist(tmp, res)
+        if "mesh" in phases:
+            phase_mesh(res, card)
         if "timing" in phases:
             phase_timing(res, card)
     if "jax" in sys.modules or "gam_ngs_tpu" in sys.modules:

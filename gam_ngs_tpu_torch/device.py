@@ -10,16 +10,20 @@ one process, merge's engine takes every GPU the process sees
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .parallel.distributed import proc_info
 
 
 def as_devices(device) -> tuple:
-    """A torch.device, a name, or a sequence of them -> a non-empty tuple
-    of torch.devices."""
+    """A torch.device, a name, a sequence of them or a mesh
+    (parallel.mesh.device_mesh, read in row-major order) -> a non-empty
+    tuple of torch.devices."""
     if isinstance(device, (str, torch.device)):
         return (torch.device(device),)
+    if isinstance(device, np.ndarray):
+        device = device.ravel().tolist()
     devices = tuple(torch.device(d) for d in device)
     if not devices:
         raise ValueError("no device given")

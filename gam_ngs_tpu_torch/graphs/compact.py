@@ -22,6 +22,10 @@ Replicates lib/src/graphs/CompactAssemblyGraph.cc:
 
 The per-edge region counting is exposed both as the exact scalar loop and
 as a batched numpy evaluation over all edges (device-friendly shape).
+
+One departure from the JAX package's copy: compute_edge_weights takes
+`devices` (a torch.device or a sequence of them) for its batched count,
+and raises ValueError without them, as the port has no global device.
 """
 
 from __future__ import annotations
@@ -96,13 +100,19 @@ class CompactAssemblyGraph(DiGraph):
     def compute_edge_weights(self, master_pe: MultiBam, master_mp: MultiBam | None,
                              slave_pe: MultiBam, slave_mp: MultiBam | None,
                              no_mult_filter: bool = False,
-                             batched: bool = True) -> None:
+                             batched: bool = True, devices=None) -> None:
         """computeEdgeWeights (CompactAssemblyGraph.cc:284).
 
         batched=True counts every (edge, library) region in one device
-        pass per shape bucket (ops.region_score); batched=False is the
+        pass per shape bucket (ops.region_score) on `devices`, a
+        torch.device or a sequence of them; batched=False is the
         sequential per-edge oracle.  Results are identical.
         """
+        if batched and devices is None:
+            raise ValueError(
+                "compute_edge_weights(batched=True) needs devices: the port "
+                "has no global device, so pass a torch.device or a sequence "
+                "of them (or batched=False for the host count)")
         if not batched:
             for (u, v) in self.edges():
                 prop = self.prop[(u, v)]
@@ -126,7 +136,7 @@ class CompactAssemblyGraph(DiGraph):
 
         jobs = self.prepare_edge_weights(master_pe, master_mp, slave_pe,
                                          slave_mp, no_mult_filter)
-        self.apply_edge_weights(region_ops.count_jobs(jobs))
+        self.apply_edge_weights(region_ops.count_jobs(jobs, devices))
 
     def prepare_edge_weights(self, master_pe, master_mp, slave_pe,
                              slave_mp, no_mult_filter=False) -> list[dict]:

@@ -176,20 +176,30 @@ def check_against_jax_kernel(problems, all_full):
                     int(p.force_start))
     fn = jax.jit(pallas_forward_antidiag_raw(8, xw, band, interpret=True,
                                              all_full=all_full))
-    jd, jlr, jdg = (np.asarray(v) for v in fn(a_win, b_win, *sc))
-    for t, p in enumerate(preps):
-        xs = p.x_size
+    jax_out = (np.asarray(v) for v in fn(a_win, b_win, *sc))
+    assert_valid_cells_equal(
+        (dirs, last_row, diag), jax_out,
+        [(p.begin_a, p.end_a, len(p.a), p.x_size) for p in preps], band)
+
+
+def assert_valid_cells_equal(port_out, jax_out, rows, band):
+    """The port's forward outputs (dirs (B, NP, band+1), last row, diag)
+    equal the JAX anti-diagonal kernel's (dirs (NP, B, KW)) on every valid
+    cell of each problem's (begin_a, end_a, a_len, x_size)."""
+    dirs, last_row, diag = port_out
+    jd, jlr, jdg = jax_out
+    for t, (ba, ea, al, xs) in enumerate(rows):
         for x in range(xs):
             for y in range(2 * band + 1):
-                if 0 <= p.begin_a + x + y - band < len(p.a):
+                if 0 <= ba + x + y - band < al:
                     w = (2 * x + y) >> 4
                     assert dir_at(dirs[t, w, y >> 1], x, y) == \
                         dir_at(jd[w, t, y >> 1], x, y), (t, x, y)
         for j in range(2 * band + 1):
-            if 0 <= p.begin_a + xs - 1 + j - band < len(p.a):
+            if 0 <= ba + xs - 1 + j - band < al:
                 assert last_row[t, j] == jlr[t, j], (t, j)
-            i = p.end_a - p.begin_a + band - j
-            if 0 <= i < xs and 0 <= p.end_a < len(p.a):
+            i = ea - ba + band - j
+            if 0 <= i < xs and 0 <= ea < al:
                 assert diag[t, j] == jdg[t, j], (t, j)
 
 

@@ -156,7 +156,10 @@ def test_port_never_imports_jax():
     gam_ngs_tpu.*: the port keeps its own copies of the host layers."""
     files = sorted((ROOT / "gam_ngs_tpu_torch").rglob("*.py"))
     assert len(files) >= 50
-    assert ROOT / "gam_ngs_tpu_torch" / "parallel" / "distributed.py" in files
+    pkg = ROOT / "gam_ngs_tpu_torch"
+    for f in ("parallel/distributed.py", "parallel/mesh.py",
+              "parallel/step.py", "entry.py"):
+        assert pkg / f in files, f
     for f in files + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             names = []
@@ -176,7 +179,8 @@ def test_port_imports_without_the_jax_package():
 import importlib, pathlib
 mods = [".".join(f.with_suffix("").parts).removesuffix(".__init__")
         for f in sorted(pathlib.Path("gam_ngs_tpu_torch").rglob("*.py"))]
-assert "gam_ngs_tpu_torch.parallel.distributed" in mods
+for m in ("parallel.distributed", "parallel.mesh", "parallel.step", "entry"):
+    assert "gam_ngs_tpu_torch." + m in mods, m
 for name in mods:
     importlib.import_module(name)
 sys.path.insert(0, "tests")
@@ -191,6 +195,20 @@ print(len(mods))
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert int(r.stdout.split()[-1]) >= 50
+
+
+def test_entry_runs_without_jax():
+    """python -m gam_ngs_tpu_torch.entry 2 --device cpu (the dry-run over
+    two CPU shards, the tiny create and both merges) in a process where
+    jax and gam_ngs_tpu cannot be imported."""
+    prog = (BLOCK_JAX + "import runpy; sys.argv = ['entry', '2', "
+            "'--device', 'cpu']; runpy.run_module('gam_ngs_tpu_torch.entry', "
+            "run_name='__main__')")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "dryrun_multichip(2) OK"
 
 
 def test_smoke_never_imports_the_jax_package():

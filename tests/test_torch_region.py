@@ -223,3 +223,65 @@ def test_partition_blocks_matches_jax(corpus, device, tmp_path,
     for n in names:
         assert (tmp_path / "port" / n).read_bytes() == \
             (tmp_path / "jax" / n).read_bytes()
+
+
+def _edge_props(cg):
+    return {e: tuple(cg.prop[e][k] for k in ("weight", "rnum", "min_cov"))
+            for e in cg.edges()}
+
+
+def _graphs(corpus):
+    blocks, _master, _slave = corpus["port"]
+    parts = paired.partition_blocks_by_paired_contigs(blocks)
+    assert parts, "expected at least one partition"
+    return [assembly.AssemblyGraph(blocks, rows, ag_id)
+            for ag_id, rows in enumerate(parts, start=1)]
+
+
+def test_batched_matches_sequential(corpus):
+    """tests/test_region_score.py::test_batched_matches_sequential on the
+    port: compute_edge_weights(batched=True, devices=cpu) = the
+    sequential per-edge weights."""
+    _blocks, master, slave = corpus["port"]
+    checked = 0
+    for ag in _graphs(corpus):
+        cg_seq = compact.CompactAssemblyGraph(ag)
+        cg_seq.compute_edge_weights(master, None, slave, None,
+                                    batched=False)
+        cg_bat = compact.CompactAssemblyGraph(ag)
+        cg_bat.compute_edge_weights(master, None, slave, None,
+                                    batched=True, devices=CPU)
+        assert _edge_props(cg_bat) == _edge_props(cg_seq)
+        checked += len(_edge_props(cg_seq))
+    assert checked
+
+
+def test_resident_overflow_routes_to_host(corpus, monkeypatch):
+    """tests/test_region_score.py::test_resident_overflow_routes_to_host
+    on the port: with OV_CAP at 1000 every resident job is counted by the
+    exact host replica, nothing is dispatched, and the weights equal the
+    sequential ones."""
+    _blocks, master, slave = corpus["port"]
+    monkeypatch.setenv("GAM_RESIDENT", "1")
+    monkeypatch.setattr(rs, "OV_CAP", 1000)  # every job overflows
+    d0 = rs.WIRE["dispatches"]
+    for ag in _graphs(corpus):
+        cg_seq = compact.CompactAssemblyGraph(ag)
+        cg_seq.compute_edge_weights(master, None, slave, None,
+                                    batched=False)
+        cg_res = compact.CompactAssemblyGraph(ag)
+        cg_res.compute_edge_weights(master, None, slave, None,
+                                    batched=True, devices=[CPU, CPU])
+        assert _edge_props(cg_res) == _edge_props(cg_seq)
+    assert rs.WIRE["dispatches"] == d0
+
+
+def test_batched_edge_weights_need_devices(corpus):
+    """batched=True (the default) without devices raises ValueError naming
+    the device rule (the JAX call takes no device; the port has no global
+    device), never TypeError; batched=False needs none."""
+    _blocks, master, slave = corpus["port"]
+    cg = compact.CompactAssemblyGraph(_graphs(corpus)[0])
+    with pytest.raises(ValueError, match="no global device"):
+        cg.compute_edge_weights(master, None, slave, None)
+    cg.compute_edge_weights(master, None, slave, None, batched=False)
