@@ -7,6 +7,7 @@ Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
   build   nvcc build of gam_ngs_tpu_torch/csrc/*.cu for sm_90a (one nvcc
           per source, in parallel), with ptxas' register and spill lines
+          (and one line of the row forward's W-warp instances)
   parity  each kernel against its plain PyTorch version on the card,
           bit for bit (256-problem soak at band 150, band-30 edge cases,
           band 300, ragged buckets of x_size 1 to the window at bands 30
@@ -16,8 +17,10 @@ Phases (all by default; any failure raises and exits non-zero):
           only): the anti-diagonal forward with the walk over its
           words, the row forward with the walk over row-major words (up
           to band 1023); the row forward and its walk at the first and
-          last band of each of its warp instances and at the switches to
-          its block kernels (15, 16, 31, 32, ..., 159, 160, 511, 512;
+          last band of each of its instances, one warp a problem up to
+          band 159 and four or eight warps up to 511, and at the switch to
+          its block kernels (15, 16, 31, 32, ..., 159, 160, 191, 192,
+          255, 256, 319, 320, 383, 384, 511, 512;
           tests/torch_problems.py::boundary_problems); and the CUDA
           engine against the exact host
           aligner (merge --device oracle's bsw_align) on every soak
@@ -77,7 +80,12 @@ Phases (all by default; any failure raises and exits non-zero):
           chunks, gather launches); and the merge with the engine and
           the edge count over every GPU the process sees, or over
           (cuda:0, cuda:0) on one card (the six outputs, the shards
-          each device ran, how many distinct GPUs)
+          each device ran, how many distinct GPUs); then the merge at
+          bands 300 and 511 through BswEngine(band=b, kernel="row") (the
+          row forward's four and eight warps a problem) and through the
+          anti-diagonal engine at that band, launch counts set to 0 just
+          before each and read just after, their six outputs
+          byte-identical
   create  the device block join at real size: the 5 Mbp layout with a
           pair every 2 bp (tests/torch_problems.py::scale_columns, ~5 M
           rows a side, 50x coverage), find_blocks_device on the card
@@ -123,9 +131,10 @@ Phases (all by default; any failure raises and exits non-zero):
           bit, and the walks over the two forwards' words compared with
           each other: B=64, band 150, XW 1024 / 4096; ms, GCUPS, the
           bound and ns per serial step (the longest problem's steps);
-          then the row forward at bands 300, 511, 700 and 2000, XW 4096,
-          and at band 150 on one 5 Mbp chunk's shape (XW 32768, x_size
-          25000), each with ns a row, bound and multiple; the arena
+          then the row forward at bands 160, 255, 300, 383, 511, 700
+          and 2000, XW 4096, and at band 150 on one 5 Mbp chunk's shape
+          (XW 32768, x_size 25000), each with ns a row, bound and
+          multiple; the arena
           gather on that chunk shape and at XW 4096 (B=64; 20 calls
           queued behind a sleep, as its launch outlasts it), its bound
           and multiple, the host microseconds of a call (median of 50),
@@ -193,6 +202,8 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_host import _prepare  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
+    MULTIWARP_WIDTHS,
+    WARP_WIDTHS,
     forward_row,
     forward_row_torch,
 )
@@ -218,7 +229,8 @@ DEV = torch.device("cuda")
 FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
                              ANTIDIAG),
             "bsw_row": (forward_row, forward_row_torch, ROW)}
-KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "arena_gather")
+KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "bsw_row_warps",
+           "arena_gather")
 # int32 operations the function needs, counted from the recurrence and
 # not from either kernel's scheme, so both forwards share one figure.
 # One band cell of bsw_ref.fill_matrix: its position (1), range test (2),
@@ -293,6 +305,16 @@ def kernel_vs_plain(name, fargs, fe, lmax, with_edits):
                         lambda: walk_torch(*wargs, layout=layout))
         errs["bsw_walk"] = max_err(wk, wp)
     return errs, ms
+
+
+def row_name(band: int) -> str:
+    """The kernels line's name of the row forward at `band`: bsw_row_warps
+    for row_warps_kernel (several warps a problem: the bands past one
+    warp's widest instance up to MULTIWARP_WIDTHS' widest, 160-511), else
+    bsw_row."""
+    one_warp = (32 * WARP_WIDTHS[-1] - 1) // 2
+    warps = (32 * max(w * r for w, r in MULTIWARP_WIDTHS) - 1) // 2
+    return "bsw_row_warps" if one_warp < band <= warps else "bsw_row"
 
 
 def packed_inputs(problems, band):
@@ -458,6 +480,7 @@ def phase_parity(res):
         fargs, fe, xw = packed_inputs(tp.boundary_problems(band), band)
         errs, _ms = kernel_vs_plain("bsw_row", fargs, fe, lmax_of(xw, band),
                                     True)
+        errs[row_name(band)] = errs.pop("bsw_row")
         note_err(res, f"[parity] bounds_band{band} bsw_row edits=True", errs)
     problems = sets[0][1]
     want = tp.oracle(problems, 150)
@@ -741,6 +764,7 @@ def phase_full(tmp, res):
     want = (d / "antidiag.gam.fasta").read_bytes()
     arena_merges(d, c, blocks, res)
     sharded_merge(d, c, blocks)
+    wide_band_merges(d, c, blocks, res)
 
     # the kernels against their plain versions on the merges' own chunks:
     # every shape of the anti-diagonal path, the row path's smallest batch
@@ -924,6 +948,56 @@ def sharded_merge(d, c, blocks) -> None:
             f"#{k} {dev}: {n}" for k, (dev, n) in enumerate(
                 zip(devices, eng.shard_runs)))
         + "; " + "; ".join(x for x in lines if "engine on" in x))
+
+
+def wide_band_merges(d, c, blocks, res) -> None:
+    """The 5 Mbp merge at bands 300 and 511, where the row forward runs
+    row_warps_kernel (four warps of five lanes a thread, eight of four),
+    through two independent forwards on the merge's chunks (B=64, XW
+    32768): BswEngine(band=b, kernel="row") and BswEngine(band=b), the
+    anti-diagonal forward; each merge's launch counts set to 0 just
+    before it and read just after; the six outputs byte-identical; then
+    the row kernel (and the walk over its words) against its plain
+    version on the row merge's smallest chunk."""
+    res["launches"]["row_warps"] = {"bsw_row_warps": 0}
+    for band in (300, 511):
+        keep = KeepChunkInputs()
+        for kernel in ("antidiag", "row"):
+            reset_launches()
+            eng = BswEngine(DEV, band=band, kernel=kernel)
+            with keep:
+                wall, m, _lines = engine_merge(
+                    c, blocks, f"{d}/band{band}_{kernel}", eng)
+            launches = BswEngine.kernel_launches()
+            fwd, off = (("bsw_row", "bsw_antidiag") if kernel == "row"
+                        else ("bsw_antidiag", "bsw_row"))
+            if not launches[fwd] or launches[off] or not launches["bsw_walk"]:
+                raise AssertionError(f"5 Mbp band={band} kernel={kernel}: "
+                                     f"launches {launches}")
+            if kernel == "row":
+                res["launches"]["row_warps"]["bsw_row_warps"] += \
+                    launches["bsw_row"]
+            log(f"[full] band={band} kernel={kernel}: wall {wall:.4f} s, "
+                f"align {m['phases']['align']:.4f} s, aligned_cells "
+                f"{m['counters']['aligned_cells']}, launches {launches}")
+        if not same_outputs(d, f"band{band}_row", ref=f"band{band}_antidiag"):
+            raise AssertionError(f"5 Mbp band={band}: the row forward's "
+                                 f"merge wrote other outputs")
+        log(f"[full] band={band}: six outputs of the row forward "
+            f"(row_warps_kernel) byte-identical to the anti-diagonal's")
+        # the kernel against its plain version on the merge's own
+        # smallest row chunk (the walk over its words beside it)
+        (name, a_shape, b_shape), k = min(
+            ((key, k) for key, k in keep.kept.items()
+             if key[0] == "bsw_row"), key=lambda kv: kv[0][1][0])
+        fe, lmax, edits = k.get("walk", (None, 0, False))
+        errs, ms = kernel_vs_plain(name, k["fargs"], fe, lmax, edits)
+        errs = {row_name(band) if n == name else n: v
+                for n, v in errs.items()}
+        note_err(res, f"[full] band={band} merge chunk {row_name(band)} "
+                 f"B={a_shape[0]} XW={2 * b_shape[1]} edits={edits}", errs)
+        log(f"[full] band={band} merge chunk B={a_shape[0]}: one call "
+            "each, " + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
 
 
 def payload_merge(d, merge, m_res) -> None:
@@ -1564,10 +1638,13 @@ def phase_timing(res, card):
                 + extra)
         res[f"timing_xw{xw}"] = t
         res[f"bound_xw{xw}"] = bounds
-    # the row forward's block kernels at XW 4096 (one lane a thread at
-    # bands 300 and 511, 2 and 4 at 700 and 2000), then its warp kernel
-    # (ten lanes a thread at band 150) on one 5 Mbp chunk's shape
-    for band, xw, fixed in ((300, 4096, 0), (511, 4096, 0), (700, 4096, 0),
+    # the row forward at XW 4096: several warps a problem at bands 160,
+    # 255, 300, 383 and 511 (four warps of three, four and five lanes a
+    # thread, eight of three and four), its block kernels at 700 and 2000
+    # (2 and 4 lanes a thread); then one warp of ten lanes a thread at
+    # band 150 on one 5 Mbp chunk's shape
+    for band, xw, fixed in ((160, 4096, 0), (255, 4096, 0), (300, 4096, 0),
+                            (383, 4096, 0), (511, 4096, 0), (700, 4096, 0),
                             (2000, 4096, 0), (150, 32768, 25000)):
         fargs, _fe, xw_b = packed_inputs(
             timing_problems(xw, band, fixed=fixed), band)
@@ -1578,7 +1655,7 @@ def phase_timing(res, card):
         t["bsw_row"], got = cuda_ms(lambda: forward_row(*fargs))
         want = timed_once(t, "bsw_row_plain", lambda: forward_row_torch(*fargs))
         note_err(res, f"[timing] B=64 band={band} XW={xw}",
-                 {"bsw_row": max_err(got, want)})
+                 {row_name(band): max_err(got, want)})
         b_ms, b_by = bound("bsw_row", fargs, None, got, ops_rate)
         steps = int(((xs + 15) // 16 * 16).max())
         cells = int(xs.sum()) * (2 * band + 1)
@@ -1587,7 +1664,8 @@ def phase_timing(res, card):
             f"ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS, bound {b_ms:.6f} "
             f"ms ({b_by}), {ms / b_ms:.1f}x it, {ms * 1e6 / steps:.1f} "
             f"ns/row ({steps} rows); plain {t['bsw_row_plain']:.4f} ms")
-        res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms)
+        res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms, b_by,
+                                                t["bsw_row_plain"])
     time_gather(res, card)
 
 
@@ -1600,6 +1678,20 @@ def ptxas_lines(build_log: str, kernel: str) -> list[str]:
             on = kernel in line
         elif on and ("registers" in line or "spill" in line):
             out.append(line.strip())
+    return out
+
+
+def warps_ptxas(build_log: str) -> list[str]:
+    """row_warps_kernel's ptxas lines, one an instance: R=.. W=..:
+    registers, then the spill stores and loads."""
+    out, inst = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            inst = re.search(r"row_warps_kernelILi(\d+)ELi(\d+)E", line)
+            if inst:
+                out.append(f"R={inst[1]} W={inst[2]}:")
+        elif inst and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.split(":", 1)[-1].strip()
     return out
 
 
@@ -1698,8 +1790,12 @@ def kernels_line(res) -> dict:
     bd = res.get("bound_xw4096", {})
     launches = res.get("launches", {})
     g_ms, g_plain, g_bound = res.get("timing_gather", (None, None, None))
-    tk = {**tk, "arena_gather": g_ms, "arena_gather_plain": g_plain}
-    bd = {**bd, "arena_gather": (g_bound, "bytes" if g_bound else None)}
+    w_ms, w_bound, w_by, w_plain = res.get("timing_row_band300_xw4096",
+                                           (None,) * 4)
+    tk = {**tk, "arena_gather": g_ms, "arena_gather_plain": g_plain,
+          "bsw_row_warps": w_ms, "bsw_row_warps_plain": w_plain}
+    bd = {**bd, "arena_gather": (g_bound, "bytes" if g_bound else None),
+          "bsw_row_warps": (w_bound, w_by)}
     kern = []
     for name, src, rep, path in (
             ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
@@ -1708,6 +1804,10 @@ def kernels_line(res) -> dict:
              "gam_ngs_tpu/ops/bsw_batch.py:383", "antidiag"),
             ("bsw_row", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:48", "row"),
+            # row_warps_kernel (bands 160-511): its launches from the
+            # band 300 and 511 merges, its times at band 300, XW 4096
+            ("bsw_row_warps", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
+             "gam_ngs_tpu/ops/bsw_pallas.py:48", "row_warps"),
             ("arena_gather", "gam_ngs_tpu_torch/csrc/arena_gather.cu",
              "gam_ngs_tpu/ops/bsw_batch.py:866", "arena")):
         b_ms, b_by = bd.get(name, (None, None))
@@ -1749,6 +1849,9 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
             log(f"[build] {line.strip()}")
+    log("[build] row_warps_kernel<R, W> ptxas: " + (
+        "; ".join(warps_ptxas(_build.build_log))
+        or "not built by this process (library found in _build/)"))
     with tempfile.TemporaryDirectory() as tmp:
         if "parity" in phases:
             phase_parity(res)

@@ -30,17 +30,20 @@
 // 0 in the row.  A problem stops at its x_size rounded up to 16 rows; the
 // wrapper zero-fills the outputs, so unwritten words read 0.
 //
-// Band <= 159: row_warp_kernel<R>, one warp per problem and one problem
-// a block (a 64-problem chunk spreads over 64 of the 132 SMs, and the
-// engine's 4 streams put a round's other chunks on the rest; two a block
-// would leave a chunk on 32).  Thread t holds the R consecutive lanes
-// j = t*R .. t*R+R-1 in registers, R = ceil((2*band+1)/32) rounded up to
-// an instantiated width (10 at band 150); lanes past 2*band are padding
-// that no band lane reads.  The previous row stays in registers: lane j's
-// diag is its own previous value, its up the previous value of lane j+1,
-// in the thread but for the top lane, which takes thread t+1's bottom
-// lane by one shuffle; lane 2*band's up gap is NEG, so its up is never
-// taken.  No barrier and no shared row sit in the row loop.
+// Band <= 511: W warps per problem and one problem a block (a 64-problem
+// chunk spreads over 64 of the 132 SMs, and the engine's 4 streams put a
+// round's other chunks on the rest; two a block would leave a chunk on
+// 32): row_warp_kernel<R>, one warp, up to band 159, and
+// row_warps_kernel<R, W> for bands 160 .. 511, built from the same row
+// bodies.  Thread t of warp w holds the R consecutive lanes
+// j = (32*w + t)*R .. +R-1 in registers, the first instance with
+// 32*W*R >= 2*band+1; lanes past 2*band are padding that no band lane
+// reads.  The previous row stays in registers: lane j's diag is its own
+// previous value, its up the previous value of lane j+1, in the thread
+// but for the top lane, which takes thread t+1's bottom lane by one
+// shuffle (lane 31 of a warp: see the exchange below); lane 2*band's up
+// gap is NEG, so its up is never taken.  No shared row sits in the row
+// loop, and no barrier for one warp.
 //
 // Row 0 runs every case of the reference per lane, with the (c, s) scan:
 // the thread's R maps in order, a 5-level shuffle scan of the thread
@@ -56,36 +59,51 @@
 // pos == end_a cell runs a checked copy with those cases and the records
 // per lane; every other block runs without them.
 //
+// W > 1 warps meet once a row, at one __syncthreads, through a small
+// exchange in shared memory (Exchange) with a slot a warp for each row
+// parity.  Before the barrier of row i each warp publishes its total,
+// the lean max of c - GAP*j (one __reduce_max_sync, issued beside the
+// shuffle scan) or row 0's composed (c, s) (lane 31's scan), and its
+// first lane's map (c, s): (c, GAP), (c, NEG) at pos == 0 and (0, NEG)
+// where the lane holds 0.  After it, warp w folds the totals of the
+// warps before it into its exclusive prefix, in order; both parts clamp
+// at NEG, so no sum of blocked lanes wraps.  Lane 31 of warp w takes its
+// top lane's up neighbour, warp w+1's first lane of row i, on row i+1 as
+// max(c, s + its own last lane of row i) from warp w+1's slot of row
+// i's parity, which no warp writes again before barrier i+1.  The barrier
+// is block-wide, so the rows run and the choice of a checked block are
+// the problem's, the same in every warp.
+//
 // The rows run in blocks of 16, unrolled: at the start of a block a
 // thread reads the R+15 a codes of its lanes (loaded a block ahead) and
 // looks up each one's score vector, the scores against b codes 0-7,
 // 4 bits each above the lowest score (the engine's b codes are 0-4); a
 // cell's score is then a shift and a mask.
 //
-// Widths R: 1, 2, 4, 6, 8, 10 (up to bands 15, 31, 63, 95, 127, 159):
-// steps of 2 keep the default band (150, R = 10) and its neighbours
-// within one lane of the least R.  A thread keeps each lane's diag and
-// up across the scan and takes its lane maximum by a tree; ptxas spills
-// nothing (80 to 255 registers).
-//
-// Band 160 .. 511: row_forward_kernel, one block per problem and one
-// lane a thread, the previous row in shared memory, the warp totals
-// scanned again across the block, two barriers a row (a kernel of its
-// own: the R-lane template below run at one lane took 14% more time at
-// band 150, B=64, XW 4096, 2.84 against 2.45-2.50 ms).  Wider warp
-// instances spilled at 255 registers, so this kernel keeps those bands
-// (B=64, XW 4096, tools/kernel_ab.py --row on an NVIDIA H100 80GB HBM3,
-// 700.00 W; warp ms, then this kernel's, from one call each): R = 12,
-// 56 bytes spilled, band 160 1.4518, 1.4331 against 2.4538, 2.4545 and
-// band 191 1.4133, 1.4285 against 2.4572, 2.4782; R = 16, 92 bytes,
-// band 192 1.8755, 1.8986 against 2.6128, 2.6141 and band 255 2.0725,
-// 2.0564 against 2.8847, 2.8724; R = 24, 120 bytes, band 256 3.0676,
-// 3.0572 against 2.8840, 2.8575 and band 300 3.1422, 3.1561 against
-// 2.9382, 2.9346; R = 32, 784 bytes, band 511 7.0884, 7.1411 against
-// 4.0165, 4.0759.
-// Band 512 .. 4095: row_forward_lanes_kernel<R>, the same with R = 2, 4
-// or 8 lanes a thread (up to band 1023, 2047, 4095), so a block never
-// passes 1024 threads.
+// Instances (W, R) and ptxas' registers, none spills:
+//   W = 1: R = 1, 2, 4, 6, 8, 10 (up to bands 15, 31, 63, 95, 127, 159):
+//     80, 113, 239, 255, 223, 252 registers; steps of 2 keep the default
+//     band (150, R = 10) and its neighbours within one lane of the least R;
+//   W = 4: R = 3, 4, 5 (up to bands 191, 255, 319): 190, 146, 255;
+//   W = 8: R = 3, 4 (up to bands 383, 511): 192, 232.
+// A thread keeps each lane's diag and up across the scan and takes its
+// lane maximum by a tree.  More warps of fewer lanes a thread win until
+// the SM's four schedulers are full: at B=64, XW 4096 (tools/kernel_ab.py
+// --row, NVIDIA H100 80GB HBM3, 700.00 W, in turns in one call) two warps
+// of 6, 8 and 10 lanes took 0.869, 1.106 and 1.358 ms at bands 160, 255
+// and 300 against four warps of 3, 4 and 5 lanes' 0.724, 0.799 and
+// 0.862 (means of two turns); eight warps of 2 and 3 lanes took 0.913
+// and 0.994 ms at bands 160 and 300, but 0.994 at band 383 against four
+// warps of 6 lanes' 1.081; four warps of 8 lanes spilled 12 bytes at
+// 255 registers.  Before, bands 160 .. 511 ran one lane a thread in a
+// block, the previous row in shared memory and two barriers a row:
+// 2.413, 2.902 and 4.049 ms at bands 160, 300 and 511, in turns with the
+// two warps above; one warp of R = 12 .. 32 lanes spilled 56 .. 784
+// bytes at 255 registers.
+// Band 512 .. 4095: row_forward_lanes_kernel<R>, a block of R = 2, 4 or
+// 8 lanes a thread (up to band 1023, 2047, 4095), so a block never
+// passes 1024 threads, the previous row in shared memory, two barriers
+// a row.
 //
 // Outputs:
 //   dirs      (B, XW/16, 2*band+1) int32: row i of lane j at word i/16,
@@ -95,11 +113,12 @@
 //             of row end_a - begin_a + band - j
 //
 // Bound on this card: the dependent chain of a row, not bytes (the
-// directions are 0.25 B per cell).  In the warp kernel a lean row costs
+// directions are 0.25 B per cell).  In the warp kernels a lean row costs
 // about 14 int32 operations per lane a thread holds (the lanes are
 // independent, so they issue back to back) and a chain of 7 shuffles
-// (the up lane, the scan's 6); one warp alone on its scheduler is
-// latency-bound at that chain (~300 ns a row at R = 10).
+// (the up lane, the scan's 6), and for W > 1 the barrier and the shared
+// loads after it; one warp alone on its scheduler is latency-bound at
+// that chain (~300 ns a row at R = 10, ~180 ns for four warps of 3).
 //
 // TPU artefacts left behind: the 128-lane YP padding of the band, the
 // aligned-superset lane_window + pltpu.roll character loads, the 0/1
@@ -133,12 +152,24 @@ __device__ __forceinline__ int base_score(int ac, int bc, const Scoring& s) {
   return ac == bc ? s.match : s.mismatch;
 }
 
-// ---- band <= 159: a warp per problem --------------------------------------
+// ---- band <= 511: W warps per problem ------------------------------------
+
+// What W > 1 warps of one problem share: the warp's index, and the
+// exchange in shared memory, 4*W ints a row parity: field f of warp v at
+// f*W + v, the warp's total (f = 0; for row 0 the c part, f = 1 its s
+// part) and its first lane's map (c, s) (f = 2, 3).
+template <int W>
+struct Exchange {
+  int w;
+  int* xch;
+};
+template <>
+struct Exchange<1> {};
 
 // Per-thread constants of one problem.
-template <int R>
-struct WarpLanes {
-  int t, j0, gj0;  // thread, its first lane, GAP * j0
+template <int R, int W = 1>
+struct WarpLanes : Exchange<W> {
+  int t, j0, gj0;  // thread in its warp, its first lane, GAP * j0
   int ug[R];       // up gap of each lane: GAP, or NEG on lane 2*band
   int ba, band, al, xs1, jdb, YS;
   bool fs;
@@ -146,10 +177,10 @@ struct WarpLanes {
 
 // Row 0: every case of the reference per lane.  prev is all 0 there, so
 // a lane's diag is its score.  score(k): the cell score of lane k.
-template <int R, typename Score>
+template <int R, typename Score, int W>
 __device__ __forceinline__ void first_row(int (&prev)[R],
                                           unsigned (&packed)[R], Score score,
-                                          const WarpLanes<R>& L,
+                                          const WarpLanes<R, W>& L,
                                           const Scoring& s, int* lr,
                                           int* dg) {
   const int NEG = s.neg, ymax = L.YS - 1, pb = L.ba - L.band + L.j0;
@@ -197,6 +228,21 @@ __device__ __forceinline__ void first_row(int (&prev)[R],
   // the row at lane j0 - 1: the threads before this one, composed
   int x = __shfl_up_sync(kFull, C, 1);
   if (L.t == 0) x = NEG;
+  if constexpr (W > 1) {
+    // and the warps before this one: each publishes its composed maps
+    // (lane 31's scan) and its first lane's map; the earlier warps'
+    // totals, composed in order, enter this warp's exclusive prefix
+    const int sx = __shfl_up_sync(kFull, S, 1);
+    int* q = L.xch;  // row 0: parity 0
+    if (L.t == 31) q[L.w] = C, q[W + L.w] = S;
+    if (L.t == 0) q[2 * W + L.w] = c[0], q[3 * W + L.w] = sl(0);
+    __syncthreads();
+    int carry = NEG;
+#pragma unroll
+    for (int v = 0; v + 1 < W; ++v)
+      if (v < L.w) carry = max(q[v], max(q[W + v] + carry, NEG));
+    x = L.t == 0 ? carry : max(x, max(sx + carry, NEG));
+  }
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int j = L.j0 + k;
@@ -240,13 +286,21 @@ __device__ __forceinline__ void first_row(int (&prev)[R],
 // pos == end_a cell are recorded.  Rows without CHECK hold none of these
 // (every lane at 0 < pos < a_len, no record).  score(k): the cell score
 // of lane k.
-template <int R, bool CHECK, typename Score>
+template <int R, bool CHECK, typename Score, int W>
 __device__ __forceinline__ void lean_row(int (&prev)[R],
                                          unsigned (&packed)[R], Score score,
-                                         const WarpLanes<R>& L,
+                                         const WarpLanes<R, W>& L,
                                          const Scoring& s, int i, int r,
                                          int* lr, int* dg) {
-  const int nb = __shfl_down_sync(kFull, prev[0], 1);  // lane j0+R, row i-1
+  int nb = __shfl_down_sync(kFull, prev[0], 1);  // lane j0+R, row i-1
+  if constexpr (W > 1) {
+    // lane 31's: the next warp's first lane, from the map (c, s) that
+    // warp published on row i-1 and this thread's last lane there
+    if (L.t == 31 && L.w + 1 < W) {
+      const int* q = L.xch + ((i - 1) & 1) * 4 * W + L.w + 1;
+      nb = max(q[2 * W], q[3 * W] + prev[R - 1]);
+    }
+  }
   const int pb = L.ba - L.band + i + L.j0;  // pos of lane k: pb + k
   const bool fresh = !L.fs || i <= s.force_max_gap;
   // each lane's diag and up, kept across the scan
@@ -278,10 +332,30 @@ __device__ __forceinline__ void lean_row(int (&prev)[R],
 #pragma unroll
     for (int k = 0; k + w < R; k += 2 * w) m[k] = max(m[k], m[k + w]);
   }
+  if constexpr (W > 1) {
+    // publish the warp's max of c - GAP*j, and its first lane's map:
+    // (c, GAP), (c, NEG) at pos == 0 (no left move into a fresh start),
+    // (0, NEG) where the lane holds 0
+    const int tot = __reduce_max_sync(kFull, m[0] - L.gj0);
+    if (L.t == 0) {
+      const bool out = CHECK && (unsigned)pb >= (unsigned)L.al;
+      int* q = L.xch + (i & 1) * 4 * W + L.w;
+      q[0] = tot;
+      q[2 * W] = out ? 0 : pl[0];
+      q[3 * W] = out || (CHECK && pb == 0) ? s.neg : s.gap;
+    }
+  }
   int y = __shfl_up_sync(kFull, m[0] - L.gj0, 1);
   if (L.t == 0) y = s.neg;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) y = max(y, __shfl_up_sync(kFull, y, d));
+  if constexpr (W > 1) {
+    __syncthreads();  // the one barrier of the row
+    const int* q = L.xch + (i & 1) * 4 * W;
+#pragma unroll
+    for (int v = 0; v + 1 < W; ++v)
+      if (v < L.w) y = max(y, q[v]);  // the warps before this one
+  }
   const int x = y + L.gj0;
 #pragma unroll
   for (int k = 1; k < R; ++k) pl[k] = max(pl[k - 1], pl[k]);
@@ -301,7 +375,7 @@ __device__ __forceinline__ void lean_row(int (&prev)[R],
       } else {
         d = row == dk ? kDiag : (row == uk ? kUp : kLeft);
         // an invalid lane 0 (not also lane 2*band) takes up, not left
-        if (k == 0 && L.t == 0 && L.YS > 1 && d == kLeft) d = kUp;
+        if (k == 0 && L.j0 == 0 && L.YS > 1 && d == kLeft) d = kUp;
       }
       if (j < L.YS) {
         if (j == L.jdb - i) dg[j] = row;
@@ -318,12 +392,12 @@ __device__ __forceinline__ void lean_row(int (&prev)[R],
 // Rows i0 .. i0+15, unrolled (row 0 runs first_row).  va: the score
 // vectors of the a codes i0 + j0 .. i0 + j0 + R + 14; b0, b1: the
 // block's 16 b codes.
-template <int R, bool CHECK>
+template <int R, bool CHECK, int W>
 __device__ __forceinline__ void row_block(int (&prev)[R],
                                           unsigned (&packed)[R],
                                           const uint32_t (&va)[R + 15],
                                           uint32_t b0, uint32_t b1, int lo,
-                                          const WarpLanes<R>& L,
+                                          const WarpLanes<R, W>& L,
                                           const Scoring& s, int i0, int* lr,
                                           int* dg) {
 #pragma unroll
@@ -448,13 +522,129 @@ __global__ void __launch_bounds__(32, 1) row_warp_kernel(
   }
 }
 
-template <int R>
+// W warps of one problem (band 160 .. 511): row_warp_kernel's loop, the
+// lanes of thread t of warp w from j0 = (32*w + t)*R
+template <int R, int W>
+__global__ void __launch_bounds__(32 * W, 1) row_warps_kernel(
+    const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
+    const int* __restrict__ begin_a, const int* __restrict__ end_a,
+    const int* __restrict__ a_len, const int* __restrict__ x_size,
+    const int* __restrict__ force_start, int aw, int xw, int band, Scoring s,
+    int* __restrict__ dirs, int* __restrict__ last_row,
+    int* __restrict__ diag) {
+  constexpr int NA = R + 15;          // a codes of a thread's 16 rows
+  constexpr int AWDS = (NA + 7) / 8;  // their words, aligned
+  __shared__ uint32_t vec_s[16];
+  __shared__ int xch[8 * W];  // Exchange: two row parities
+  const int b = blockIdx.x, t = threadIdx.x & 31;
+  const int lo = min(min(s.match, s.mismatch), min(s.nn, s.nx));
+  if (threadIdx.x < 16) {
+    // score vector of a code: (score(a, b) - lo) << 4b for b codes 0-7
+    uint32_t v = 0;
+    for (int bc = 0; bc < 8; ++bc)
+      v |= (uint32_t)(base_score(threadIdx.x, bc, s) - lo) << (4 * bc);
+    vec_s[threadIdx.x] = v;
+  }
+  __syncthreads();
+
+  const int YS = 2 * band + 1, ymax = 2 * band;
+  WarpLanes<R, W> L;
+  L.t = t;
+  L.w = threadIdx.x >> 5;
+  L.xch = xch;
+  L.j0 = threadIdx.x * R;
+  L.gj0 = s.gap * L.j0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) L.ug[k] = L.j0 + k == ymax ? s.neg : s.gap;
+  L.ba = begin_a[b];
+  L.band = band;
+  L.al = a_len[b];
+  const int xs = x_size[b];
+  L.xs1 = xs - 1;
+  L.jdb = end_a[b] - L.ba + band;  // diag lane of row i: jdb - i
+  L.YS = YS;
+  L.fs = force_start[b] != 0;
+
+  // whole words: a rows are 16-byte chunks, b rows XW/2 bytes, XW % 16 == 0
+  const uint32_t* a32 =
+      reinterpret_cast<const uint32_t*>(a_pk + (size_t)b * (aw / 2));
+  const uint32_t* b32 =
+      reinterpret_cast<const uint32_t*>(b_pk + (size_t)b * (xw / 2));
+  int* dir_out = dirs + (size_t)b * (xw / 16) * YS;
+  int* lr = last_row + (size_t)b * YS;
+  int* dg = diag + (size_t)b * YS;
+
+  const int stop = xs <= 0 ? 0 : min(xw, (xs + 15) / 16 * 16);
+  const int nblk = stop >> 4;
+  // rows up to pos0_rows hold a lane at pos <= 0; rows from ilim a lane
+  // at pos >= a_len
+  const int pos0_rows = band - L.ba, ilim = L.al - L.ba - band;
+  // a codes of block n start at 16n + j0: the word offset and the in-word
+  // shift of the thread's first code are loop invariant
+  const int nwa = aw >> 3, wa0 = L.j0 >> 3, sha = 4 * (L.j0 & 7);
+  const auto load_words = [&](int n, uint32_t (&w)[AWDS + 1],
+                              uint32_t& w0, uint32_t& w1) {
+#pragma unroll
+    for (int q = 0; q <= AWDS; ++q) {
+      const int wi = 2 * n + wa0 + q;  // padding lanes read past the row
+      w[q] = wi < nwa ? __ldg(a32 + wi) : 0xffffffffu;
+    }
+    w0 = __ldg(b32 + 2 * n);
+    w1 = __ldg(b32 + 2 * n + 1);
+  };
+
+  int prev[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) prev[k] = 0;
+  uint32_t wa[AWDS + 1], wb0 = 0, wb1 = 0;
+  if (nblk > 0) load_words(0, wa, wb0, wb1);
+  for (int n = 0; n < nblk; ++n) {
+    const int i0 = 16 * n;
+    uint32_t nxt[AWDS + 1], nb0 = 0, nb1 = 0;
+    if (n + 1 < nblk) load_words(n + 1, nxt, nb0, nb1);  // a block ahead
+    uint32_t va[NA];
+    {
+      uint32_t al[AWDS];
+#pragma unroll
+      for (int q = 0; q < AWDS; ++q)
+        al[q] = __funnelshift_r(wa[q], wa[q + 1], sha);
+#pragma unroll
+      for (int m = 0; m < NA; ++m)
+        va[m] = vec_s[(al[m >> 3] >> (4 * (m & 7))) & 15u];
+    }
+    unsigned packed[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) packed[k] = 0;
+    // a lane at pos <= 0 or >= a_len, the last row, or a pos == end_a
+    // cell in this block?
+    const bool check = n == 0 || i0 <= pos0_rows || i0 + 15 >= ilim ||
+                       (L.xs1 >= i0 && L.xs1 <= i0 + 15) ||
+                       (L.jdb >= i0 && L.jdb - ymax <= i0 + 15);
+    if (check)
+      row_block<R, true>(prev, packed, va, wb0, wb1, lo, L, s, i0, lr, dg);
+    else
+      row_block<R, false>(prev, packed, va, wb0, wb1, lo, L, s, i0, lr, dg);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (L.j0 + k < YS) dir_out[(size_t)n * YS + L.j0 + k] = (int)packed[k];
+    if (n + 1 < nblk) {
+#pragma unroll
+      for (int q = 0; q <= AWDS; ++q) wa[q] = nxt[q];
+      wb0 = nb0;
+      wb1 = nb1;
+    }
+  }
+}
+
+template <int R, int W>
 int launch_warp(const void* a_pk, const void* b_pk, const void* begin_a,
                 const void* end_a, const void* a_len, const void* x_size,
                 const void* force_start, int B, int aw, int xw, int band,
                 const Scoring& s, void* dirs, void* last_row, void* diag,
                 cudaStream_t stream) {
-  row_warp_kernel<R><<<B, 32, 0, stream>>>(
+  auto kernel = row_warp_kernel<R>;
+  if constexpr (W > 1) kernel = row_warps_kernel<R, W>;
+  kernel<<<B, 32 * W, 0, stream>>>(
       (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
       (const int*)end_a, (const int*)a_len, (const int*)x_size,
       (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,
@@ -462,167 +652,7 @@ int launch_warp(const void* a_pk, const void* b_pk, const void* begin_a,
   return (int)cudaGetLastError();
 }
 
-// ---- band 160 .. 4095: a block per problem --------------------------------
-
-// one band lane a thread (band <= 511)
-__global__ void row_forward_kernel(
-    const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
-    const int* __restrict__ begin_a, const int* __restrict__ end_a,
-    const int* __restrict__ a_len, const int* __restrict__ x_size,
-    const int* __restrict__ force_start, int aw, int xw, int band, Scoring s,
-    int* __restrict__ dirs, int* __restrict__ last_row,
-    int* __restrict__ diag) {
-  extern __shared__ int smem[];
-  const int YS = 2 * band + 1, ymax = 2 * band;
-  int* row_s = smem;           // YS + 1: the previous row, lane YS stays 0
-  int* tot_c = smem + YS + 1;  // 32 warp totals (c part)
-  int* tot_s = tot_c + 32;     // 32 warp totals (s part)
-  const int b = blockIdx.x, j = threadIdx.x;
-  const int lane = j & 31, warp = j >> 5, nwarps = blockDim.x >> 5;
-  const bool in_band = j < YS;
-  const bool last = j == ymax, first = j == 0, mid = !first && !last;
-  const unsigned full = 0xffffffffu;
-  const int NEG = s.neg;
-
-  const int ba = begin_a[b], ea = end_a[b], al = a_len[b], xs = x_size[b];
-  const bool fs = force_start[b] != 0;
-  const uint8_t* ap = a_pk + (size_t)b * (aw / 2);
-  const uint8_t* bp = b_pk + (size_t)b * (xw / 2);
-  int* dir_out = dirs + (size_t)b * (xw / 16) * YS;
-  int* lr = last_row + (size_t)b * YS;
-  int* dg = diag + (size_t)b * YS;
-
-  const int stop = xs <= 0 ? 0 : min(xw, (xs + 15) / 16 * 16);
-  const int exact_rows = ba < 0 ? stop : min(stop, band + 1);
-  const int jd_base = ea - ba + band;  // diag lane of row i: jd_base - i
-  for (int q = j; q < YS + 1; q += blockDim.x) row_s[q] = 0;
-  __syncthreads();
-
-  unsigned packed = 0;  // directions of up to 16 rows
-  for (int i = 0; i < stop; ++i) {
-    const bool exact = i < exact_rows;
-    int prev = 0, prev_up = 0, sc = 0, pos = 0;
-    if (in_band) {
-      prev = row_s[j];
-      prev_up = row_s[j + 1];
-      sc = base_score(nibble(ap, i + j), nibble(bp, i), s);
-      pos = ba - band + i + j;
-    }
-    const int up = last ? s.gap : prev_up + s.gap;
-    const int diag_acc = prev + sc;
-    const int base_gen = last ? diag_acc : max(diag_acc, up);
-    // this lane's map (c, s) before the left dependency
-    int c, sl;
-    bool valid, pos0 = false;
-    if (exact) {
-      const bool valid_pos = pos >= 0 && pos < al;
-      pos0 = pos == 0;
-      int base;
-      if (i == 0) {
-        const bool cond_b = fs && pos > s.force_max_gap && pos < al;
-        valid = (valid_pos && (!fs || pos <= s.force_max_gap)) || cond_b;
-        base = cond_b ? sc : max(sc, s.gap);
-        sl = (valid && pos > 0 && !first) ? 0 : NEG;
-      } else {
-        const bool fm_le = i <= s.force_max_gap;
-        const bool fresh = pos0 && (!fs || fm_le);
-        const bool forced = pos0 && fs && !fm_le;
-        if (fresh)
-          base = last ? max(sc, s.gap) : max(max(sc, up), s.gap);
-        else if (forced)
-          base = last ? sc : max(sc, up);
-        else
-          base = base_gen;
-        valid = valid_pos;
-        sl = (valid && !fresh && !forced && !first) ? s.gap : NEG;
-      }
-      valid = valid && in_band;
-      c = valid ? base : 0;
-      // warp level: inclusive composition over lanes
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, c, d);
-        const int s_l = __shfl_up_sync(full, sl, d);
-        if (lane >= d) {
-          c = max(c, max(sl + c_l, NEG));
-          sl = max(s_l + sl, NEG);
-        }
-      }
-      if (lane == 31) {
-        tot_c[warp] = c;
-        tot_s[warp] = sl;
-      }
-      __syncthreads();
-      // block level: every warp scans the warp totals and applies the
-      // composition of the warps before its own
-      int tc = lane < nwarps ? tot_c[lane] : NEG;
-      int ts = lane < nwarps ? tot_s[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, tc, d);
-        const int s_l = __shfl_up_sync(full, ts, d);
-        if (lane >= d) {
-          tc = max(tc, max(ts + c_l, NEG));
-          ts = max(s_l + ts, NEG);
-        }
-      }
-      const int before = __shfl_sync(full, tc, (warp + 31) & 31);
-      if (warp > 0) c = max(c, max(sl + before, NEG));
-    } else {
-      valid = in_band && pos < al;
-      // prefix max of c[k] - GAP*k, then + GAP*j
-      c = (valid ? base_gen : 0) - s.gap * j;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, c, d);
-        if (lane >= d) c = max(c, c_l);
-      }
-      if (lane == 31) tot_c[warp] = c;
-      __syncthreads();
-      int tc = lane < nwarps ? tot_c[lane] : NEG;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, tc, d);
-        if (lane >= d) tc = max(tc, c_l);
-      }
-      const int before = __shfl_sync(full, tc, (warp + 31) & 31);
-      if (warp > 0) c = max(c, before);
-      c += s.gap * j;
-    }
-    const int row = valid ? c : 0;
-
-    int d;
-    if (exact && pos0) {
-      const bool left_blocked = fs && i > s.force_max_gap;
-      d = row == sc ? kDiag
-                    : ((last || (row == s.gap && !left_blocked)) ? kLeft
-                                                                 : kUp);
-    } else {
-      int diag_t = diag_acc, up_t = up;
-      if (exact && i == 0) {
-        diag_t = sc;
-        up_t = fs ? ((pos >= 0 && pos <= s.force_max_gap) ? s.gap : NEG)
-                  : s.gap;
-      }
-      d = row == diag_t ? kDiag
-                        : ((mid && row == up_t) ? kUp
-                                                : (mid || last ? kLeft : kUp));
-    }
-
-    if (in_band) {
-      if (j == jd_base - i) dg[j] = row;
-      if (i == xs - 1) lr[j] = row;
-      packed |= (unsigned)d << (2 * (i & 15));
-      if ((i & 15) == 15) {
-        dir_out[(size_t)(i >> 4) * YS + j] = (int)packed;
-        packed = 0;
-      }
-      row_s[j] = row;  // every read of the previous row came before the
-                       // barrier above
-    }
-    __syncthreads();
-  }
-}
+// ---- band 512 .. 4095: a block per problem --------------------------------
 
 // R = 2, 4 or 8 consecutive band lanes a thread; at most 1024 threads a
 // block, so at most 64 registers a thread
@@ -853,27 +883,29 @@ extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
   const int YS = 2 * band + 1;
   const Scoring s{match, mismatch, nn, nx, gap, force_max_gap, neg};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (band <= 159) {
-#define GAM_WARP(RR)                                                       \
-  return launch_warp<RR>(a_pk, b_pk, begin_a, end_a, a_len, x_size,        \
-                         force_start, B, aw, xw, band, s, dirs, last_row,  \
-                         diag, st)
-    // the narrowest instantiated R with 32 * R >= 2 * band + 1
-    const int need = (YS + 31) / 32;
-    if (need <= 1) GAM_WARP(1);
-    if (need <= 2) GAM_WARP(2);
-    if (need <= 4) GAM_WARP(4);
-    if (need <= 6) GAM_WARP(6);
-    if (need <= 8) GAM_WARP(8);
-    GAM_WARP(10);
+  // W warps of R lanes a thread: the first instance with 32*W*R >= 2*band+1
+#define GAM_WARP(WW, RR)                                                    \
+  if (YS <= 32 * (WW) * (RR))                                               \
+  return launch_warp<RR, WW>(a_pk, b_pk, begin_a, end_a, a_len, x_size,     \
+                             force_start, B, aw, xw, band, s, dirs,         \
+                             last_row, diag, st)
+  GAM_WARP(1, 1);
+  GAM_WARP(1, 2);
+  GAM_WARP(1, 4);
+  GAM_WARP(1, 6);
+  GAM_WARP(1, 8);
+  GAM_WARP(1, 10);
+  GAM_WARP(4, 3);
+  GAM_WARP(4, 4);
+  GAM_WARP(4, 5);
+  GAM_WARP(8, 3);
+  GAM_WARP(8, 4);
 #undef GAM_WARP
-  }
   // lanes a thread: the fewest that keep the block at 1024 threads
-  const int R = band <= 511 ? 1 : band <= 1023 ? 2 : band <= 2047 ? 4 : 8;
+  const int R = band <= 1023 ? 2 : band <= 2047 ? 4 : 8;
   const int threads = ((YS + R - 1) / R + 31) / 32 * 32;
   const size_t shmem = (YS + 1 + 64) * sizeof(int);
-  auto kernel = R == 1   ? row_forward_kernel
-                : R == 2 ? row_forward_lanes_kernel<2>
+  auto kernel = R == 2   ? row_forward_lanes_kernel<2>
                 : R == 4 ? row_forward_lanes_kernel<4>
                          : row_forward_lanes_kernel<8>;
   kernel<<<B, threads, shmem, st>>>(

@@ -4,7 +4,11 @@
 `forward_row_torch`, the same row loop in torch ops, for CPU tensors.
 Both compute bsw_ref.fill_matrix cell for cell on the valid band cells
 and produce the same output bit for bit on the whole output (the kernel
-source note gives the per-lane cases and the layout).
+source note gives the per-lane cases and the layout).  The kernel runs W
+warps a problem of R band lanes a thread in registers up to band 511
+(one warp up to 159: WARP_WIDTHS; four or eight from 160:
+MULTIWARP_WIDTHS), then a block of 2, 4 or 8 lanes a thread up to
+MAX_BAND.
 
 Inputs are forward_antidiag's (B problems): a_pk (B, AW/2) and b_pk
 (B, XW/2) uint8 4-bit packed windows with AW = a_width(XW, band), and
@@ -38,12 +42,16 @@ from .bsw_ref import FORCE_MAXGAP_LEN, GAP
 
 launches = 0  # kernel launches by forward_row (CPU runs not counted)
 MAX_BAND = 4095  # 2 * band + 1 lanes, at most 8 a thread, 1024 threads
-# csrc/bsw_row.cu's warp-per-problem instances: band lanes a thread, R
-# taking the bands whose 2*band+1 lanes need more than the width before
-# it and at most 32*R (the launcher's choice, up to band 159; bands
-# 160.. run a block of 1, 2, 4 or 8 lanes a thread up to band 511, 1023,
-# 2047, 4095)
+# csrc/bsw_row.cu's instances of W warps a problem, R band lanes a
+# thread in registers: each takes the bands whose 2*band+1 lanes need
+# more than the instance before it and at most 32*W*R (the launcher's
+# choice).  One warp (row_warp_kernel<R>) up to band 159:
 WARP_WIDTHS = (1, 2, 4, 6, 8, 10)
+# then (W, R) (row_warps_kernel<R, W>) up to band 191, 255, 319, 383,
+# 511: the fewer lanes a thread, the shorter a row, up to eight warps;
+# bands 512.. run a block of 2, 4 or 8 lanes a thread up to band 1023,
+# 2047, 4095
+MULTIWARP_WIDTHS = ((4, 3), (4, 4), (4, 5), (8, 3), (8, 4))
 
 _fn = None
 

@@ -2,11 +2,12 @@
 // and tests/test_torch_arena.py: it lets g++ compile a kernel source of
 // gam_ngs_tpu_torch/csrc and run it on the host.  A launch runs the grid's
 // blocks one after another (a dim3 grid in x, then y, then z order); a
-// block's threads are std::threads, and each warp's shuffles, votes and
-// __syncwarp meet at a barrier of its 32 threads, so every thread of a
-// warp must reach them together, as `full`-mask shuffles require on the
-// card.  __shared__ arrays become statics (one block runs at a time);
-// the test rewrites `extern __shared__` buffers and <<<>>> launches.
+// block's threads are std::threads, and each warp's shuffles, votes,
+// reductions and __syncwarp meet at a barrier of its 32 threads, so every
+// thread of a warp must reach them together, as `full`-mask shuffles
+// require on the card; __syncthreads waits for the whole block.
+// __shared__ arrays become statics (one block runs at a time); the test
+// rewrites `extern __shared__` buffers and <<<>>> launches.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -107,6 +108,15 @@ inline bool __any_sync(unsigned, bool p) {
   for (int i = 0; i < 32; ++i) r = r || emu::my_warp->vals[i];
   emu::my_warp->bar.arrive_and_wait();
   return r;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const int lane = threadIdx.x & 31;
+  emu::my_warp->vals[lane] = v;
+  emu::my_warp->bar.arrive_and_wait();
+  long long r = emu::my_warp->vals[0];
+  for (int i = 1; i < 32; ++i) r = std::max(r, emu::my_warp->vals[i]);
+  emu::my_warp->bar.arrive_and_wait();
+  return (int)r;
 }
 inline void __syncwarp() { emu::my_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu::my_block->arrive_and_wait(); }

@@ -8,6 +8,9 @@ All quantities are integers, so every comparison is exact; homology is
 compared with abs=1e-12.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -305,72 +308,103 @@ def test_row_merges_match_jax(tmp_path, corpus, monkeypatch):
 
 
 WARP_WIDTHS = bsw_row.WARP_WIDTHS  # row_warp_kernel<R>'s band lanes a thread
+MULTIWARP_WIDTHS = bsw_row.MULTIWARP_WIDTHS  # row_warps_kernel<R, W>'s (W, R)
 NEG, GAP = bsw_row.NEG, bsw_row.GAP
 
 
-def warp_scan_model(c, s, R, lean, rng):
-    """row_warp_kernel's row scan in int32 numpy, step for step: 32
-    threads of R consecutive lanes; lanes past the row are padding, here
-    random, since no band lane may read them.  Exact (maps (c, s)): each
-    thread composes its R maps in order, a 5-level shuffle scan of the
-    thread totals (thread t takes thread t-d's partial when t >= d), the
-    shift to thread t-1's total (thread 0 starts at NEG), then the lanes
-    in order; every composition clamps at NEG.  Lean (c only): each
-    thread's prefix max of c - GAP*k over its lanes k, a max scan of
-    those totals less GAP*j0 (j0 = t*R) shifted by one thread, which a
-    shuffle returns unchanged below lane d, then each lane's
-    max(that + GAP*j0, prefix) + GAP*k.  c, s: (B, n) int32, n <= 32*R."""
+def warp_scan_model(c, s, R, lean, rng, W=1):
+    """row_warp_kernel's (W = 1) and row_warps_kernel's row scan in int32
+    numpy, step for step: W warps of 32 threads of R consecutive lanes;
+    lanes past the row are padding, here random, since no band lane may
+    read them.  Exact (maps (c, s)): each thread composes its R maps in
+    order, a 5-level shuffle scan of the thread totals in each warp
+    (thread t takes thread t-d's partial when t >= d), the warps' totals
+    (lane 31's) composed in order into each warp's carry (NEG for warp
+    0), thread t's exclusive prefix (thread t-1's total) applied to the
+    carry (thread 0 starts at it), then the lanes in order; every
+    composition clamps at NEG.  Lean (c only): each thread's prefix max
+    of c - GAP*k over its lanes k, a max scan of those totals less GAP*j0
+    (j0 = (32*w + t)*R) shifted by one thread, which a shuffle returns
+    unchanged below lane d, the max of the warps' totals before each warp
+    (each warp's max of its threads' totals), then each lane's max(that
+    + GAP*j0, prefix) + GAP*k.  c, s: (B, n) int32, n <= 32*W*R.
+    Returns (row, firsts): firsts (B, W-1), each warp's first lane
+    recomputed as the warp before it does for its up neighbour, from the
+    map (c, s) that warp published, (c, GAP) for lean, and the row at the
+    lane before."""
     B, n = c.shape
-    W = 32 * R
+    N = 32 * W * R
     i32 = np.int32
-    cc = np.concatenate([c, rng.integers(-500, 500, (B, W - n))],
-                        axis=1).astype(i32).reshape(B, 32, R)
+    cc = np.concatenate([c, rng.integers(-500, 500, (B, N - n))],
+                        axis=1).astype(i32).reshape(B, W, 32, R)
     k = np.arange(R, dtype=i32)
-    j0 = np.arange(32, dtype=i32) * R
+    j0 = (np.arange(32 * W, dtype=i32) * R).reshape(W, 32)
     if lean:
-        pl = np.maximum.accumulate(cc - i32(GAP) * k, axis=2)
-        y = np.full((B, 32), NEG, i32)
-        y[:, 1:] = pl[:, :-1, R - 1] - i32(GAP) * j0[:-1]
+        pl = np.maximum.accumulate(cc - i32(GAP) * k, axis=3)
+        tot = (pl[..., R - 1] - i32(GAP) * j0).max(axis=2)
+        y = np.full((B, W, 32), NEG, i32)
+        y[:, :, 1:] = pl[:, :, :-1, R - 1] - i32(GAP) * j0[:, :-1]
         for d in (1, 2, 4, 8, 16):
             up = y.copy()
-            up[:, d:] = y[:, :-d]
+            up[:, :, d:] = y[:, :, :-d]
             y = np.maximum(y, up)
-        x = y + i32(GAP) * j0
-        return (np.maximum(x[:, :, None], pl)
-                + i32(GAP) * k).reshape(B, W)[:, :n]
-    pad_s = rng.choice(np.array([0, GAP, NEG], i32), (B, W - n))
-    ss = np.concatenate([s, pad_s], axis=1).astype(i32).reshape(B, 32, R)
-    C, S = cc[:, :, 0].copy(), ss[:, :, 0].copy()
-    for q in range(1, R):
-        C = np.maximum(cc[:, :, q], np.maximum(ss[:, :, q] + C, i32(NEG)))
-        S = np.maximum(S + ss[:, :, q], i32(NEG))
-    t = np.arange(32)
-    for d in (1, 2, 4, 8, 16):
-        c_l, s_l = C.copy(), S.copy()
-        c_l[:, d:], s_l[:, d:] = C[:, :-d], S[:, :-d]
-        on = t >= d
-        C, S = (np.where(on, np.maximum(C, np.maximum(S + c_l, i32(NEG))), C),
-                np.where(on, np.maximum(s_l + S, i32(NEG)), S))
-    x = np.full((B, 32), NEG, i32)
-    x[:, 1:] = C[:, :-1]
-    row = np.empty_like(cc)
-    for q in range(R):
-        x = np.maximum(cc[:, :, q], np.maximum(ss[:, :, q] + x, i32(NEG)))
-        row[:, :, q] = x
-    return row.reshape(B, W)[:, :n]
+        carry = np.full((B, W), NEG, i32)
+        for w in range(1, W):
+            carry[:, w] = np.maximum(carry[:, w - 1], tot[:, w - 1])
+        x = np.maximum(y, carry[:, :, None]) + i32(GAP) * j0
+        row = np.maximum(x[..., None], pl) + i32(GAP) * k
+        c_first = cc[:, 1:, 0, 0]
+        s_first = np.full_like(c_first, GAP)
+    else:
+        pad_s = rng.choice(np.array([0, GAP, NEG], i32), (B, N - n))
+        ss = np.concatenate([s, pad_s], axis=1).astype(i32).reshape(
+            B, W, 32, R)
+        C, S = cc[..., 0].copy(), ss[..., 0].copy()
+        for q in range(1, R):
+            C = np.maximum(cc[..., q], np.maximum(ss[..., q] + C, i32(NEG)))
+            S = np.maximum(S + ss[..., q], i32(NEG))
+        t = np.arange(32)
+        for d in (1, 2, 4, 8, 16):
+            c_l, s_l = C.copy(), S.copy()
+            c_l[:, :, d:], s_l[:, :, d:] = C[:, :, :-d], S[:, :, :-d]
+            on = t >= d
+            C, S = (np.where(on, np.maximum(C, np.maximum(S + c_l,
+                                                          i32(NEG))), C),
+                    np.where(on, np.maximum(s_l + S, i32(NEG)), S))
+        carry = np.full((B, W), NEG, i32)
+        for w in range(1, W):
+            carry[:, w] = np.maximum(C[:, w - 1, 31], np.maximum(
+                S[:, w - 1, 31] + carry[:, w - 1], i32(NEG)))
+        x = np.empty((B, W, 32), i32)
+        x[:, :, 0] = carry
+        x[:, :, 1:] = np.maximum(C[:, :, :-1], np.maximum(
+            S[:, :, :-1] + carry[:, :, None], i32(NEG)))
+        row = np.empty_like(cc)
+        for q in range(R):
+            x = np.maximum(cc[..., q], np.maximum(ss[..., q] + x, i32(NEG)))
+            row[..., q] = x
+        c_first, s_first = cc[:, 1:, 0, 0], ss[:, 1:, 0, 0]
+    row = row.reshape(B, N)
+    firsts = np.maximum(c_first,
+                        s_first + row[:, 32 * R * np.arange(1, W) - 1])
+    return row[:, :n], firsts
 
 
-@pytest.mark.parametrize("R", WARP_WIDTHS)
-def test_warp_scan_model_matches_plain_scans(R):
-    """The numpy model of the warp kernel's exact and lean row scans
-    against the plain version's _scan_exact and _scan_lean, at the
-    narrowest and widest row width (2*band+1 lanes) each instance takes,
-    on random scores with runs of NEG slopes."""
-    rng = np.random.default_rng(R)
-    before = (0,) + WARP_WIDTHS
-    lo = 32 * before[WARP_WIDTHS.index(R)] + 1  # odd: 2*band+1
-    hi = 32 * R - 1
-    for n in sorted({lo, (lo + hi) // 2 | 1, hi}):
+def scan_model_widths(W, R):
+    """The narrowest and widest row (2*band+1 lanes, odd) that the
+    instance of W warps of R lanes a thread takes, and one between."""
+    caps = [32 * r for r in WARP_WIDTHS] + [32 * w * r
+                                           for w, r in MULTIWARP_WIDTHS]
+    hi = 32 * W * R
+    lo = caps[caps.index(hi) - 1] + 1 if caps.index(hi) else 1
+    return sorted({lo, (lo + hi - 1) // 2 | 1, hi - 1})
+
+
+def check_scan_model(W, R, rng):
+    """warp_scan_model against the plain version's _scan_exact and
+    _scan_lean on random scores with runs of NEG slopes; each warp's
+    recomputed first lane against the plain row there."""
+    for n in scan_model_widths(W, R):
         B = 48
         c = rng.integers(-3000, 3000, (B, n)).astype(np.int32)
         c[:4] = 0  # invalid lanes hold 0
@@ -379,9 +413,48 @@ def test_warp_scan_model_matches_plain_scans(R):
             start = int(rng.integers(0, n))
             s[row, start:start + int(rng.integers(1, n + 1))] = NEG
         s[-1] = NEG
-        want = bsw_row._scan_exact(torch.from_numpy(c), torch.from_numpy(s))
-        got = warp_scan_model(c, s, R, False, rng)
-        assert (got == want.numpy()).all(), (R, n)
-        want = bsw_row._scan_lean(torch.from_numpy(c))
-        got = warp_scan_model(c, None, R, True, rng)
-        assert (got == want.numpy()).all(), (R, n)
+        firsts = 32 * R * np.arange(1, W)
+        inside = firsts < n
+        for lean in (False, True):
+            if lean:
+                want = bsw_row._scan_lean(torch.from_numpy(c)).numpy()
+                got, got_firsts = warp_scan_model(c, None, R, True, rng, W)
+            else:
+                want = bsw_row._scan_exact(torch.from_numpy(c),
+                                           torch.from_numpy(s)).numpy()
+                got, got_firsts = warp_scan_model(c, s, R, False, rng, W)
+            assert (got == want).all(), (W, R, n, lean)
+            assert (got_firsts[:, inside] == want[:, firsts[inside]]).all(), \
+                (W, R, n, lean)
+
+
+@pytest.mark.parametrize("R", WARP_WIDTHS)
+def test_warp_scan_model_matches_plain_scans(R):
+    """The numpy model of the warp kernel's exact and lean row scans
+    against the plain version's _scan_exact and _scan_lean, at the
+    narrowest and widest row width (2*band+1 lanes) each instance takes,
+    on random scores with runs of NEG slopes."""
+    check_scan_model(1, R, np.random.default_rng(R))
+
+
+@pytest.mark.parametrize("W,R", MULTIWARP_WIDTHS,
+                         ids=[f"{w}x{r}" for w, r in MULTIWARP_WIDTHS])
+def test_multiwarp_scan_model_matches_plain_scans(W, R):
+    """The same for the instances of W warps a problem: each warp's own
+    scan, the carry of the warps before it (their totals, composed in
+    order or their maxima), and the first lane that the warp before
+    recomputes from the map this warp published, at the narrowest and
+    widest row each instance takes."""
+    check_scan_model(W, R, np.random.default_rng(100 * W + R))
+
+
+def test_instance_widths_match_the_launcher():
+    """ops/bsw_row.py's WARP_WIDTHS and MULTIWARP_WIDTHS, from which the
+    tests take each instance's first and last band, are the launcher's
+    own list of GAM_WARP(W, R) instances in csrc/bsw_row.cu, in order."""
+    src = open(os.path.join(os.path.dirname(bsw_row.__file__), os.pardir,
+                            "csrc", "bsw_row.cu")).read()
+    launched = [(int(w), int(r)) for w, r in
+                re.findall(r"^\s*GAM_WARP\((\d+), (\d+)\);", src, re.M)]
+    assert launched == ([(1, r) for r in WARP_WIDTHS]
+                        + list(MULTIWARP_WIDTHS))

@@ -138,13 +138,15 @@ def ragged_problems(band: int, seed: int = 13):
 
 
 def row_boundary_bands() -> list[int]:
-    """The first and last band of each warp instance of the row forward
-    (bsw_row.WARP_WIDTHS: 2*band+1 <= 32*R), then of its block kernels
-    of one and two lanes a thread: 15, 16, 31, 32, ..., 159, 160, 511,
-    512."""
-    from gam_ngs_tpu_torch.ops.bsw_row import WARP_WIDTHS
+    """The first and last band of each instance of the row forward: one
+    warp of R lanes a thread (bsw_row.WARP_WIDTHS: 2*band+1 <= 32*R),
+    W warps of R (MULTIWARP_WIDTHS: <= 32*W*R), then the first of its
+    block kernel of two lanes a thread: 15, 16, 31, 32, ..., 159, 160,
+    191, 192, ..., 383, 384, 511, 512."""
+    from gam_ngs_tpu_torch.ops.bsw_row import MULTIWARP_WIDTHS, WARP_WIDTHS
 
-    last = [(32 * r - 1) // 2 for r in WARP_WIDTHS] + [511]
+    last = ([(32 * r - 1) // 2 for r in WARP_WIDTHS]
+            + [(32 * w * r - 1) // 2 for w, r in MULTIWARP_WIDTHS])
     return sorted({b for hi in last for b in (hi, hi + 1)})
 
 
