@@ -7,21 +7,28 @@ Phases (all by default; any failure raises and exits non-zero):
   header  card name and power limit (nvidia-smi), torch / CUDA / nvcc
   build   nvcc build of gam_ngs_tpu_torch/csrc/*.cu for sm_90a (one nvcc
           per source, in parallel), with ptxas' register and spill lines
-          (and one line of the row forward's W-warp instances)
+          (and one line of the row forward's W-warp and cluster
+          instances), and the most clusters of each row instance the
+          card runs at once (cudaOccupancyMaxActiveClusters)
   parity  each kernel against its plain PyTorch version on the card,
           bit for bit (256-problem soak at band 150, band-30 edge cases,
           band 300, ragged buckets of x_size 1 to the window at bands 30
           and 300, find-max ties at bands 30 and 150, band 700 with four
-          warps per problem and two row lanes a thread, bands 2000 and
-          4000 with four and eight row lanes a thread, row forward
-          only): the anti-diagonal forward with the walk over its
+          warps per problem (the row forward: sixteen warps of three
+          lanes), bands 2000 and 4000 with clusters of two and eight
+          blocks, row forward only): the anti-diagonal forward with the
+          walk over its
           words, the row forward with the walk over row-major words (up
-          to band 1023); the row forward and its walk at the first and
-          last band of each of its instances, one warp a problem up to
-          band 159 and four or eight warps up to 511, and at the switch to
-          its block kernels (15, 16, 31, 32, ..., 159, 160, 191, 192,
-          255, 256, 319, 320, 383, 384, 511, 512;
-          tests/torch_problems.py::boundary_problems); and the CUDA
+          to band 1023); the row forward and its walk (up to band 1023)
+          at the first and last band of each of its instances, one warp
+          a problem up to band 159, four, eight or sixteen warps up to
+          767, clusters of two blocks of eight or sixteen warps up to
+          2047 and of eight blocks of eight up to 4095 (15, 16,
+          31, 32, ..., 159, 160, 191, 192, 255, 256, 319, 320, 383, 384,
+          511, 512, 639, 640, 767, 768, 1023, 1024, 1535, 1536, 2047,
+          2048, 3071, 3072, 4095; tests/torch_problems.py::
+          boundary_problems); and
+          the CUDA
           engine against the exact host
           aligner (merge --device oracle's bsw_align) on every soak
           problem: anti-diagonal in lean and edits fetch, kernel="row"
@@ -81,11 +88,14 @@ Phases (all by default; any failure raises and exits non-zero):
           the edge count over every GPU the process sees, or over
           (cuda:0, cuda:0) on one card (the six outputs, the shards
           each device ran, how many distinct GPUs); then the merge at
-          bands 300 and 511 through BswEngine(band=b, kernel="row") (the
-          row forward's four and eight warps a problem) and through the
+          bands 300, 511 and 1023 through BswEngine(band=b,
+          kernel="row") (the row forward's four and eight warps a
+          problem, and a cluster of two blocks of eight) and through the
           anti-diagonal engine at that band, launch counts set to 0 just
           before each and read just after, their six outputs
-          byte-identical
+          byte-identical, and (bands 511 and 1023) the row kernel and
+          its walk against their plain versions on the row merge's
+          smallest chunk
   create  the device block join at real size: the 5 Mbp layout with a
           pair every 2 bp (tests/torch_problems.py::scale_columns, ~5 M
           rows a side, 50x coverage), find_blocks_device on the card
@@ -131,10 +141,10 @@ Phases (all by default; any failure raises and exits non-zero):
           bit, and the walks over the two forwards' words compared with
           each other: B=64, band 150, XW 1024 / 4096; ms, GCUPS, the
           bound and ns per serial step (the longest problem's steps);
-          then the row forward at bands 160, 255, 300, 383, 511, 700
-          and 2000, XW 4096, and at band 150 on one 5 Mbp chunk's shape
-          (XW 32768, x_size 25000), each with ns a row, bound and
-          multiple; the arena
+          then the row forward at bands 160, 255, 300, 383, 511, 512,
+          700, 1023, 2000 and 4095, XW 4096, and at band 150 on one 5 Mbp
+          chunk's shape (XW 32768, x_size 25000), each with ns a row,
+          bound, multiple and its instance (C, W, R); the arena
           gather on that chunk shape and at XW 4096 (B=64; 20 calls
           queued behind a sleep, as its launch outlasts it), its bound
           and multiple, the host microseconds of a call (median of 50),
@@ -202,10 +212,10 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_host import _prepare  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
-    MULTIWARP_WIDTHS,
-    WARP_WIDTHS,
     forward_row,
     forward_row_torch,
+    instance_info,
+    row_instance,
 )
 from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
     ANTIDIAG,
@@ -230,7 +240,7 @@ FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
                              ANTIDIAG),
             "bsw_row": (forward_row, forward_row_torch, ROW)}
 KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "bsw_row_warps",
-           "arena_gather")
+           "bsw_row_cluster", "arena_gather")
 # int32 operations the function needs, counted from the recurrence and
 # not from either kernel's scheme, so both forwards share one figure.
 # One band cell of bsw_ref.fill_matrix: its position (1), range test (2),
@@ -308,13 +318,14 @@ def kernel_vs_plain(name, fargs, fe, lmax, with_edits):
 
 
 def row_name(band: int) -> str:
-    """The kernels line's name of the row forward at `band`: bsw_row_warps
-    for row_warps_kernel (several warps a problem: the bands past one
-    warp's widest instance up to MULTIWARP_WIDTHS' widest, 160-511), else
-    bsw_row."""
-    one_warp = (32 * WARP_WIDTHS[-1] - 1) // 2
-    warps = (32 * max(w * r for w, r in MULTIWARP_WIDTHS) - 1) // 2
-    return "bsw_row_warps" if one_warp < band <= warps else "bsw_row"
+    """The kernels line's name of the row forward at `band`, by the
+    instance the launcher picks (ops/bsw_row.py::row_instance):
+    bsw_row_cluster for a cluster of C > 1 blocks (bands 768-4095),
+    bsw_row_warps for several warps in one block (160-767), else bsw_row
+    (one warp)."""
+    c, w, _r = row_instance(band)
+    return ("bsw_row_cluster" if c > 1 else
+            "bsw_row_warps" if w > 1 else "bsw_row")
 
 
 def packed_inputs(problems, band):
@@ -475,11 +486,12 @@ def phase_parity(res):
                 if walk_fe is None:
                     break
     # the row forward at the first and last band of each of its
-    # instances, and the walk over its words
+    # instances, and the walk over its words (up to band 1023)
     for band in tp.row_boundary_bands():
         fargs, fe, xw = packed_inputs(tp.boundary_problems(band), band)
-        errs, _ms = kernel_vs_plain("bsw_row", fargs, fe, lmax_of(xw, band),
-                                    True)
+        errs, _ms = kernel_vs_plain("bsw_row", fargs,
+                                    fe if band <= 1023 else None,
+                                    lmax_of(xw, band), True)
         errs[row_name(band)] = errs.pop("bsw_row")
         note_err(res, f"[parity] bounds_band{band} bsw_row edits=True", errs)
     problems = sets[0][1]
@@ -951,16 +963,22 @@ def sharded_merge(d, c, blocks) -> None:
 
 
 def wide_band_merges(d, c, blocks, res) -> None:
-    """The 5 Mbp merge at bands 300 and 511, where the row forward runs
-    row_warps_kernel (four warps of five lanes a thread, eight of four),
-    through two independent forwards on the merge's chunks (B=64, XW
-    32768): BswEngine(band=b, kernel="row") and BswEngine(band=b), the
+    """The 5 Mbp merge at bands 300, 511 and 1023, where the row forward
+    runs row_warps_kernel (four warps of five lanes a thread, eight of
+    four, and a cluster of two blocks of eight warps of four), through
+    two independent forwards on the merge's chunks (B=64, XW 32768):
+    BswEngine(band=b, kernel="row") and BswEngine(band=b), the
     anti-diagonal forward; each merge's launch counts set to 0 just
-    before it and read just after; the six outputs byte-identical; then
-    the row kernel (and the walk over its words) against its plain
-    version on the row merge's smallest chunk."""
+    before it and read just after; the six outputs byte-identical; then,
+    at bands 511 and 1023, the row kernel (and the walk over its words)
+    against its plain version on the row merge's smallest chunk (band
+    300's plain comparison, ~30 s of plain versions, is left out to keep
+    the script's time; the parity phase holds that instance at its first
+    and last band)."""
     res["launches"]["row_warps"] = {"bsw_row_warps": 0}
-    for band in (300, 511):
+    res["launches"]["row_cluster"] = {"bsw_row_cluster": 0}
+    for band, plain in ((300, False), (511, True), (1023, True)):
+        kname = row_name(band)
         keep = KeepChunkInputs()
         for kernel in ("antidiag", "row"):
             reset_launches()
@@ -975,8 +993,8 @@ def wide_band_merges(d, c, blocks, res) -> None:
                 raise AssertionError(f"5 Mbp band={band} kernel={kernel}: "
                                      f"launches {launches}")
             if kernel == "row":
-                res["launches"]["row_warps"]["bsw_row_warps"] += \
-                    launches["bsw_row"]
+                path = kname.replace("bsw_", "")
+                res["launches"][path][kname] += launches["bsw_row"]
             log(f"[full] band={band} kernel={kernel}: wall {wall:.4f} s, "
                 f"align {m['phases']['align']:.4f} s, aligned_cells "
                 f"{m['counters']['aligned_cells']}, launches {launches}")
@@ -984,7 +1002,10 @@ def wide_band_merges(d, c, blocks, res) -> None:
             raise AssertionError(f"5 Mbp band={band}: the row forward's "
                                  f"merge wrote other outputs")
         log(f"[full] band={band}: six outputs of the row forward "
-            f"(row_warps_kernel) byte-identical to the anti-diagonal's")
+            f"(row_warps_kernel, C, W, R = {row_instance(band)}) "
+            f"byte-identical to the anti-diagonal's")
+        if not plain:
+            continue
         # the kernel against its plain version on the merge's own
         # smallest row chunk (the walk over its words beside it)
         (name, a_shape, b_shape), k = min(
@@ -992,7 +1013,7 @@ def wide_band_merges(d, c, blocks, res) -> None:
              if key[0] == "bsw_row"), key=lambda kv: kv[0][1][0])
         fe, lmax, edits = k.get("walk", (None, 0, False))
         errs, ms = kernel_vs_plain(name, k["fargs"], fe, lmax, edits)
-        errs = {row_name(band) if n == name else n: v
+        errs = {row_name(band) if n == "bsw_row" else n: v
                 for n, v in errs.items()}
         note_err(res, f"[full] band={band} merge chunk {row_name(band)} "
                  f"B={a_shape[0]} XW={2 * b_shape[1]} edits={edits}", errs)
@@ -1639,13 +1660,15 @@ def phase_timing(res, card):
         res[f"timing_xw{xw}"] = t
         res[f"bound_xw{xw}"] = bounds
     # the row forward at XW 4096: several warps a problem at bands 160,
-    # 255, 300, 383 and 511 (four warps of three, four and five lanes a
-    # thread, eight of three and four), its block kernels at 700 and 2000
-    # (2 and 4 lanes a thread); then one warp of ten lanes a thread at
-    # band 150 on one 5 Mbp chunk's shape
+    # 255, 300, 383, 511, 512 and 700 (four warps of three, four and five
+    # lanes a thread, eight of three, four and five, sixteen of three),
+    # clusters at 1023, 2000 and 4095 (two blocks of eight warps of four
+    # lanes, two of sixteen of four, eight of eight of four); then one
+    # warp of ten lanes a thread at band 150 on one 5 Mbp chunk's shape
     for band, xw, fixed in ((160, 4096, 0), (255, 4096, 0), (300, 4096, 0),
-                            (383, 4096, 0), (511, 4096, 0), (700, 4096, 0),
-                            (2000, 4096, 0), (150, 32768, 25000)):
+                            (383, 4096, 0), (511, 4096, 0), (512, 4096, 0),
+                            (700, 4096, 0), (1023, 4096, 0), (2000, 4096, 0),
+                            (4095, 4096, 0), (150, 32768, 25000)):
         fargs, _fe, xw_b = packed_inputs(
             timing_problems(xw, band, fixed=fixed), band)
         if xw_b != xw:
@@ -1663,7 +1686,8 @@ def phase_timing(res, card):
         log(f"[timing] {card} | B=64 band={band} XW={xw} bsw_row: {ms:.4f} "
             f"ms -> {cells / (ms * 1e-3) / 1e9:.3f} GCUPS, bound {b_ms:.6f} "
             f"ms ({b_by}), {ms / b_ms:.1f}x it, {ms * 1e6 / steps:.1f} "
-            f"ns/row ({steps} rows); plain {t['bsw_row_plain']:.4f} ms")
+            f"ns/row ({steps} rows); plain {t['bsw_row_plain']:.4f} ms; "
+            f"C, W, R = {row_instance(band)}")
         res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms, b_by,
                                                 t["bsw_row_plain"])
     time_gather(res, card)
@@ -1682,14 +1706,15 @@ def ptxas_lines(build_log: str, kernel: str) -> list[str]:
 
 
 def warps_ptxas(build_log: str) -> list[str]:
-    """row_warps_kernel's ptxas lines, one an instance: R=.. W=..:
+    """row_warps_kernel's ptxas lines, one an instance: R=.. W=.. C=..:
     registers, then the spill stores and loads."""
     out, inst = [], None
     for line in build_log.splitlines():
         if "Compiling entry" in line:
-            inst = re.search(r"row_warps_kernelILi(\d+)ELi(\d+)E", line)
+            inst = re.search(r"row_warps_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                             line)
             if inst:
-                out.append(f"R={inst[1]} W={inst[2]}:")
+                out.append(f"R={inst[1]} W={inst[2]} C={inst[3]}:")
         elif inst and ("registers" in line or "spill" in line):
             out[-1] += " " + line.split(":", 1)[-1].strip()
     return out
@@ -1792,10 +1817,14 @@ def kernels_line(res) -> dict:
     g_ms, g_plain, g_bound = res.get("timing_gather", (None, None, None))
     w_ms, w_bound, w_by, w_plain = res.get("timing_row_band300_xw4096",
                                            (None,) * 4)
+    c_ms, c_bound, c_by, c_plain = res.get("timing_row_band1023_xw4096",
+                                           (None,) * 4)
     tk = {**tk, "arena_gather": g_ms, "arena_gather_plain": g_plain,
-          "bsw_row_warps": w_ms, "bsw_row_warps_plain": w_plain}
+          "bsw_row_warps": w_ms, "bsw_row_warps_plain": w_plain,
+          "bsw_row_cluster": c_ms, "bsw_row_cluster_plain": c_plain}
     bd = {**bd, "arena_gather": (g_bound, "bytes" if g_bound else None),
-          "bsw_row_warps": (w_bound, w_by)}
+          "bsw_row_warps": (w_bound, w_by),
+          "bsw_row_cluster": (c_bound, c_by)}
     kern = []
     for name, src, rep, path in (
             ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
@@ -1808,6 +1837,10 @@ def kernels_line(res) -> dict:
             # band 300 and 511 merges, its times at band 300, XW 4096
             ("bsw_row_warps", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:48", "row_warps"),
+            # row_warps_kernel in clusters (bands 768-4095): its launches
+            # from the band 1023 merge, its times at band 1023, XW 4096
+            ("bsw_row_cluster", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
+             "gam_ngs_tpu/ops/bsw_pallas.py:48", "row_cluster"),
             ("arena_gather", "gam_ngs_tpu_torch/csrc/arena_gather.cu",
              "gam_ngs_tpu/ops/bsw_batch.py:866", "arena")):
         b_ms, b_by = bd.get(name, (None, None))
@@ -1849,9 +1882,14 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line \
                 or "spill" in line:
             log(f"[build] {line.strip()}")
-    log("[build] row_warps_kernel<R, W> ptxas: " + (
+    log("[build] row_warps_kernel<R, W, C> ptxas: " + (
         "; ".join(warps_ptxas(_build.build_log))
         or "not built by this process (library found in _build/)"))
+    firsts = [0] + [b for b in tp.row_boundary_bands()
+                    if row_instance(b) != row_instance(b - 1)]
+    log("[build] bsw_row instances (first band: C, W, R, the most clusters "
+        "of it the card runs at once): " + "; ".join(
+            f"{b}: {instance_info(b)}" for b in firsts))
     with tempfile.TemporaryDirectory() as tmp:
         if "parity" in phases:
             phase_parity(res)

@@ -30,14 +30,16 @@
 // 0 in the row.  A problem stops at its x_size rounded up to 16 rows; the
 // wrapper zero-fills the outputs, so unwritten words read 0.
 //
-// Band <= 511: W warps per problem and one problem a block (a 64-problem
-// chunk spreads over 64 of the 132 SMs, and the engine's 4 streams put a
+// W warps per problem, in one block or in the C blocks of a thread-block
+// cluster, and one problem a block or a cluster (a 64-problem chunk
+// spreads over 64 of the 132 SMs, and the engine's 4 streams put a
 // round's other chunks on the rest; two a block would leave a chunk on
 // 32): row_warp_kernel<R>, one warp, up to band 159, and
-// row_warps_kernel<R, W> for bands 160 .. 511, built from the same row
-// bodies.  Thread t of warp w holds the R consecutive lanes
-// j = (32*w + t)*R .. +R-1 in registers, the first instance with
-// 32*W*R >= 2*band+1; lanes past 2*band are padding that no band lane
+// row_warps_kernel<R, W, C> for bands 160 .. 4095 (C = 1 up to band 767),
+// built from the same row bodies.  Thread t of warp w in the block of
+// cluster rank k holds the R consecutive lanes
+// j = ((k*W + w)*32 + t)*R .. +R-1 in registers, the first instance with
+// 32*C*W*R >= 2*band+1; lanes past 2*band are padding that no band lane
 // reads.  The previous row stays in registers: lane j's diag is its own
 // previous value, its up the previous value of lane j+1, in the thread
 // but for the top lane, which takes thread t+1's bottom lane by one
@@ -74,6 +76,32 @@
 // is block-wide, so the rows run and the choice of a checked block are
 // the problem's, the same in every warp.
 //
+// C > 1 blocks of a cluster (bands 768 .. 4095) extend the exchange one
+// level.  Past 1536 lanes one block cannot hold a row in registers (an
+// SM has 65,536: 256 threads take at most 255 each, 512 at most 128;
+// eight warps of 5 lanes take 255, sixteen of 3 take 128 and sixteen of
+// 4 spill), so the lanes of one problem spread over the SMs of a
+// cluster, which run together on one GPC, read and write each other's
+// shared memory (DSMEM) and meet at one hardware barrier.  Every block
+// keeps the exchange of all C*W warps of the problem (warp g = k*W + w),
+// and a warp pushes what another block reads into that block's copy
+// before the barrier: lanes 1 .. C-1 its total to the later ranks, lane 0
+// of warp 0 its first lane's map to the rank before (remote stores, which
+// the barrier's release orders).  So after the barrier every read is
+// local: warp g folds the totals of warps 0 .. g-1, lane l reading those
+// of warps l and l + 32 and one __reduce_max_sync taking their max (row 0
+// composes them in order, rank by rank), and lane 31 of a block's last
+// warp reads the next rank's first lane where the block's other warps
+// read their neighbour's.  The one barrier of a row is the cluster
+// barrier, split: arrive after the publish, wait after the warp's own
+// scan.  Two row parities keep a row's pushes off values still being
+// read, as in one block; a cluster barrier before the first row (every
+// block of the cluster has started) and one after the last (a block's
+// shared memory outlives every access to it; once a problem) close the
+// loop, and a rank whose lanes are all padding runs it all the same.
+// The exchange and the score vectors sit in dynamic shared memory, so
+// that the host emulation (tests/cuda_emu) gives each block its own.
+//
 // The rows run in blocks of 16, unrolled: at the start of a block a
 // thread reads the R+15 a codes of its lanes (loaded a block ahead) and
 // looks up each one's score vector, the scores against b codes 0-7,
@@ -85,7 +113,12 @@
 //     80, 113, 239, 255, 223, 252 registers; steps of 2 keep the default
 //     band (150, R = 10) and its neighbours within one lane of the least R;
 //   W = 4: R = 3, 4, 5 (up to bands 191, 255, 319): 190, 146, 255;
-//   W = 8: R = 3, 4 (up to bands 383, 511): 192, 232.
+//   W = 8: R = 3, 4, 5 (up to bands 383, 511, 639): 192, 232, 255;
+//   W = 16: R = 3 (up to band 767): 128, the most at 512 threads (R = 4
+//     spilled 4 bytes);
+//   clusters (C, W, R) = (2, 8, 4), (2, 16, 3), (2, 16, 4), (8, 8, 3),
+//     (8, 8, 4) (up to bands 1023, 1535, 2047, 3071, 4095): 125, 106,
+//     112, 123, 127 (ptxas keeps the cluster instances lighter).
 // A thread keeps each lane's diag and up across the scan and takes its
 // lane maximum by a tree.  More warps of fewer lanes a thread win until
 // the SM's four schedulers are full: at B=64, XW 4096 (tools/kernel_ab.py
@@ -100,10 +133,28 @@
 // 2.413, 2.902 and 4.049 ms at bands 160, 300 and 511, in turns with the
 // two warps above; one warp of R = 12 .. 32 lanes spilled 56 .. 784
 // bytes at 255 registers.
-// Band 512 .. 4095: row_forward_lanes_kernel<R>, a block of R = 2, 4 or
-// 8 lanes a thread (up to band 1023, 2047, 4095), so a block never
-// passes 1024 threads, the previous row in shared memory, two barriers
-// a row.
+// The cluster barrier sets a cluster's row.  Alone (tools/cluster_floor.cu,
+// B=64, 4096 rows, eight warps a block, the same card) the exchange took
+// 77 ns a row in one block and 470, 741, 944 ns in clusters of 2, 4, 8
+// pushing before the barrier, against 575, 819, 911 pulling after it,
+// 498, 771, 1004 with a relaxed arrive behind the writers' fence, and
+// 637, 800, 1250 with remote arrives on the receiver's mbarrier in place
+// of the barrier.  So one block as wide as the registers allow wins where
+// it fits: eight warps of 5 lanes took 1.334 ms at band 512 against a
+// cluster of two blocks of eight warps of 3 lanes' 3.31, sixteen warps
+// of 3 took 2.40 ms at bands 640-767 against 3.3.  And waves count: the
+// card runs at once (cudaOccupancyMaxActiveClusters) 132 clusters of two
+// blocks of eight warps (two blocks an SM at <= 128 registers), 62 of
+// four, 30 of eight, so a 64-problem chunk takes one wave at C = 2, two
+// at C = 4 and three at C = 8; two blocks of sixteen warps (one wave)
+// took 3.57-4.02 ms at bands 1024-2047 against four blocks of eight
+// warps' 5.40-6.08, while four blocks of sixteen warps (three waves)
+// took 9.63-10.66 ms at 2048-4095 against eight blocks of eight warps'
+// 9.20-9.86 (tools/kernel_ab.py --row, B=64, XW 4096, in turns).
+// Before, bands 512 .. 4095 ran a block of R = 2, 4 or 8 lanes a thread
+// (up to band 1023, 2047, 4095), at most 1024 threads, the previous row
+// in shared memory, two barriers a row: 4.63, 5.51, 7.02, 12.31 and
+// 29.28 ms at bands 512, 700, 1023, 2000 and 4095.
 //
 // Outputs:
 //   dirs      (B, XW/16, 2*band+1) int32: row i of lane j at word i/16,
@@ -141,10 +192,6 @@ struct Scoring {
   int match, mismatch, nn, nx, gap, force_max_gap, neg;
 };
 
-__device__ __forceinline__ int nibble(const uint8_t* pk, int q) {
-  return (__ldg(pk + (q >> 1)) >> ((q & 1) * 4)) & 15;
-}
-
 __device__ __forceinline__ int base_score(int ac, int bc, const Scoring& s) {
   const bool an = ac == 4, bn = bc == 4;
   if (an && bn) return s.nn;
@@ -152,23 +199,50 @@ __device__ __forceinline__ int base_score(int ac, int bc, const Scoring& s) {
   return ac == bc ? s.match : s.mismatch;
 }
 
-// ---- band <= 511: W warps per problem ------------------------------------
+// ---- W warps per problem, in C blocks of a cluster -------------------------
 
-// What W > 1 warps of one problem share: the warp's index, and the
-// exchange in shared memory, 4*W ints a row parity: field f of warp v at
-// f*W + v, the warp's total (f = 0; for row 0 the c part, f = 1 its s
-// part) and its first lane's map (c, s) (f = 2, 3).
-template <int W>
+#ifdef __CUDACC__
+// Thread-block clusters (tests/cuda_emu/cuda_runtime.h defines the host's
+// stand-ins): the block's rank in its cluster; the address of a shared
+// variable in the block of another rank; the cluster barrier's halves,
+// arrive (releasing this thread's earlier writes, remote ones included)
+// and wait (acquiring the other threads')
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int* cluster_peer(int* p, int rank) {
+  uint64_t q;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(q) : "l"(p), "r"(rank));
+  return reinterpret_cast<int*>(q);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+#endif
+
+// What the W*C > 1 warps of one problem share: the warp's index w in
+// the problem (k*W + its warp in the block of cluster rank k), and the
+// block's exchange in shared memory, 4*C*W ints a row parity: field f of
+// warp v at f*C*W + v, the warp's total (f = 0; for row 0 the c part,
+// f = 1 its s part) and its first lane's map (c, s) (f = 2, 3); for
+// C > 1, the exchange of the block this lane pushes to (nullptr: none).
+template <int W, int C>
 struct Exchange {
   int w;
   int* xch;
+  int* push;
 };
 template <>
-struct Exchange<1> {};
+struct Exchange<1, 1> {};
 
 // Per-thread constants of one problem.
-template <int R, int W = 1>
-struct WarpLanes : Exchange<W> {
+template <int R, int W = 1, int C = 1>
+struct WarpLanes : Exchange<W, C> {
   int t, j0, gj0;  // thread in its warp, its first lane, GAP * j0
   int ug[R];       // up gap of each lane: GAP, or NEG on lane 2*band
   int ba, band, al, xs1, jdb, YS;
@@ -177,10 +251,10 @@ struct WarpLanes : Exchange<W> {
 
 // Row 0: every case of the reference per lane.  prev is all 0 there, so
 // a lane's diag is its score.  score(k): the cell score of lane k.
-template <int R, typename Score, int W>
+template <int R, typename Score, int W, int C>
 __device__ __forceinline__ void first_row(int (&prev)[R],
                                           unsigned (&packed)[R], Score score,
-                                          const WarpLanes<R, W>& L,
+                                          const WarpLanes<R, W, C>& L,
                                           const Scoring& s, int* lr,
                                           int* dg) {
   const int NEG = s.neg, ymax = L.YS - 1, pb = L.ba - L.band + L.j0;
@@ -210,37 +284,50 @@ __device__ __forceinline__ void first_row(int (&prev)[R],
   const auto sl = [&](int k) { return ((sl_zero >> k) & 1u) ? 0 : NEG; };
   // this thread's R maps composed in order, then an inclusive scan of
   // the thread totals
-  int C = c[0], S = sl(0);
+  int Ct = c[0], St = sl(0);
 #pragma unroll
   for (int k = 1; k < R; ++k) {
-    C = max(c[k], max(sl(k) + C, NEG));
-    S = max(S + sl(k), NEG);
+    Ct = max(c[k], max(sl(k) + Ct, NEG));
+    St = max(St + sl(k), NEG);
   }
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int c_l = __shfl_up_sync(kFull, C, d);
-    const int s_l = __shfl_up_sync(kFull, S, d);
+    const int c_l = __shfl_up_sync(kFull, Ct, d);
+    const int s_l = __shfl_up_sync(kFull, St, d);
     if (L.t >= d) {
-      C = max(C, max(S + c_l, NEG));
-      S = max(s_l + S, NEG);
+      Ct = max(Ct, max(St + c_l, NEG));
+      St = max(s_l + St, NEG);
     }
   }
   // the row at lane j0 - 1: the threads before this one, composed
-  int x = __shfl_up_sync(kFull, C, 1);
+  int x = __shfl_up_sync(kFull, Ct, 1);
   if (L.t == 0) x = NEG;
-  if constexpr (W > 1) {
+  if constexpr (W * C > 1) {
     // and the warps before this one: each publishes its composed maps
     // (lane 31's scan) and its first lane's map; the earlier warps'
     // totals, composed in order, enter this warp's exclusive prefix
-    const int sx = __shfl_up_sync(kFull, S, 1);
+    constexpr int G = W * C;
+    const int sx = __shfl_up_sync(kFull, St, 1);
     int* q = L.xch;  // row 0: parity 0
-    if (L.t == 31) q[L.w] = C, q[W + L.w] = S;
-    if (L.t == 0) q[2 * W + L.w] = c[0], q[3 * W + L.w] = sl(0);
-    __syncthreads();
+    if (L.t == 31) q[L.w] = Ct, q[G + L.w] = St;
+    if (L.t == 0) q[2 * G + L.w] = c[0], q[3 * G + L.w] = sl(0);
+    if constexpr (C > 1) {
+      // the same into the blocks that read them: the composed maps to
+      // the later ranks, warp 0's first lane to the rank before
+      const int ct = __shfl_sync(kFull, Ct, 31);
+      const int st = __shfl_sync(kFull, St, 31);
+      if (L.push && L.t) L.push[L.w] = ct, L.push[G + L.w] = st;
+      if (L.push && !L.t)
+        L.push[2 * G + L.w] = c[0], L.push[3 * G + L.w] = sl(0);
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
     int carry = NEG;
 #pragma unroll
-    for (int v = 0; v + 1 < W; ++v)
-      if (v < L.w) carry = max(q[v], max(q[W + v] + carry, NEG));
+    for (int v = 0; v + 1 < G; ++v)
+      if (v < L.w) carry = max(q[v], max(q[G + v] + carry, NEG));
     x = L.t == 0 ? carry : max(x, max(sx + carry, NEG));
   }
 #pragma unroll
@@ -286,19 +373,21 @@ __device__ __forceinline__ void first_row(int (&prev)[R],
 // pos == end_a cell are recorded.  Rows without CHECK hold none of these
 // (every lane at 0 < pos < a_len, no record).  score(k): the cell score
 // of lane k.
-template <int R, bool CHECK, typename Score, int W>
+template <int R, bool CHECK, typename Score, int W, int C>
 __device__ __forceinline__ void lean_row(int (&prev)[R],
                                          unsigned (&packed)[R], Score score,
-                                         const WarpLanes<R, W>& L,
+                                         const WarpLanes<R, W, C>& L,
                                          const Scoring& s, int i, int r,
                                          int* lr, int* dg) {
   int nb = __shfl_down_sync(kFull, prev[0], 1);  // lane j0+R, row i-1
-  if constexpr (W > 1) {
+  constexpr int G = W * C;
+  if constexpr (G > 1) {
     // lane 31's: the next warp's first lane, from the map (c, s) that
-    // warp published on row i-1 and this thread's last lane there
-    if (L.t == 31 && L.w + 1 < W) {
-      const int* q = L.xch + ((i - 1) & 1) * 4 * W + L.w + 1;
-      nb = max(q[2 * W], q[3 * W] + prev[R - 1]);
+    // warp published (or, from the next rank, pushed here) on row i-1 and
+    // this thread's last lane there
+    if (L.t == 31 && L.w + 1 < G) {
+      const int* q = L.xch + ((i - 1) & 1) * 4 * G + L.w + 1;
+      nb = max(q[2 * G], q[3 * G] + prev[R - 1]);
     }
   }
   const int pb = L.ba - L.band + i + L.j0;  // pos of lane k: pb + k
@@ -332,24 +421,45 @@ __device__ __forceinline__ void lean_row(int (&prev)[R],
 #pragma unroll
     for (int k = 0; k + w < R; k += 2 * w) m[k] = max(m[k], m[k + w]);
   }
-  if constexpr (W > 1) {
+  if constexpr (G > 1) {
     // publish the warp's max of c - GAP*j, and its first lane's map:
     // (c, GAP), (c, NEG) at pos == 0 (no left move into a fresh start),
     // (0, NEG) where the lane holds 0
     const int tot = __reduce_max_sync(kFull, m[0] - L.gj0);
+    const bool out = CHECK && (unsigned)pb >= (unsigned)L.al;
+    const int fc = out ? 0 : pl[0];
+    const int fsl = out || (CHECK && pb == 0) ? s.neg : s.gap;
     if (L.t == 0) {
-      const bool out = CHECK && (unsigned)pb >= (unsigned)L.al;
-      int* q = L.xch + (i & 1) * 4 * W + L.w;
+      int* q = L.xch + (i & 1) * 4 * G + L.w;
       q[0] = tot;
-      q[2 * W] = out ? 0 : pl[0];
-      q[3 * W] = out || (CHECK && pb == 0) ? s.neg : s.gap;
+      q[2 * G] = fc;
+      q[3 * G] = fsl;
+    }
+    if constexpr (C > 1) {
+      // and into the blocks that read them: the total to the later
+      // ranks (lanes 1 .. C-1), warp 0's first lane to the rank before
+      // (lane 0); then this thread's half of the row's barrier
+      if (L.push) {
+        int* q = L.push + (i & 1) * 4 * G + L.w;
+        if (L.t) q[0] = tot;
+        if (!L.t) q[2 * G] = fc, q[3 * G] = fsl;
+      }
+      cluster_arrive();
     }
   }
   int y = __shfl_up_sync(kFull, m[0] - L.gj0, 1);
   if (L.t == 0) y = s.neg;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) y = max(y, __shfl_up_sync(kFull, y, d));
-  if constexpr (W > 1) {
+  if constexpr (C > 1) {
+    cluster_wait();  // the one barrier of the row, for the whole cluster
+    // the warps before this one, in every rank: lane l takes warps l
+    // and l + 32, the warp their max
+    const int* q = L.xch + (i & 1) * 4 * G;
+    int z = L.t < L.w ? q[L.t] : s.neg;
+    if constexpr (G > 32) z = max(z, L.t + 32 < L.w ? q[L.t + 32] : s.neg);
+    y = max(y, __reduce_max_sync(kFull, z));
+  } else if constexpr (W > 1) {
     __syncthreads();  // the one barrier of the row
     const int* q = L.xch + (i & 1) * 4 * W;
 #pragma unroll
@@ -392,12 +502,12 @@ __device__ __forceinline__ void lean_row(int (&prev)[R],
 // Rows i0 .. i0+15, unrolled (row 0 runs first_row).  va: the score
 // vectors of the a codes i0 + j0 .. i0 + j0 + R + 14; b0, b1: the
 // block's 16 b codes.
-template <int R, bool CHECK, int W>
+template <int R, bool CHECK, int W, int C>
 __device__ __forceinline__ void row_block(int (&prev)[R],
                                           unsigned (&packed)[R],
                                           const uint32_t (&va)[R + 15],
                                           uint32_t b0, uint32_t b1, int lo,
-                                          const WarpLanes<R, W>& L,
+                                          const WarpLanes<R, W, C>& L,
                                           const Scoring& s, int i0, int* lr,
                                           int* dg) {
 #pragma unroll
@@ -522,9 +632,11 @@ __global__ void __launch_bounds__(32, 1) row_warp_kernel(
   }
 }
 
-// W warps of one problem (band 160 .. 511): row_warp_kernel's loop, the
-// lanes of thread t of warp w from j0 = (32*w + t)*R
-template <int R, int W>
+// W warps of one problem in each of the C blocks of a cluster (C = 1:
+// one block, bands 160 .. 767; C > 1: bands 768 .. 4095):
+// row_warp_kernel's loop, the lanes of thread t of warp w in the block of
+// cluster rank k from j0 = ((k*W + w)*32 + t)*R
+template <int R, int W, int C>
 __global__ void __launch_bounds__(32 * W, 1) row_warps_kernel(
     const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
     const int* __restrict__ begin_a, const int* __restrict__ end_a,
@@ -534,9 +646,13 @@ __global__ void __launch_bounds__(32 * W, 1) row_warps_kernel(
     int* __restrict__ diag) {
   constexpr int NA = R + 15;          // a codes of a thread's 16 rows
   constexpr int AWDS = (NA + 7) / 8;  // their words, aligned
-  __shared__ uint32_t vec_s[16];
-  __shared__ int xch[8 * W];  // Exchange: two row parities
-  const int b = blockIdx.x, t = threadIdx.x & 31;
+  // the score vectors (16) and the exchange (8*C*W ints: two row
+  // parities) in dynamic shared memory
+  extern __shared__ int smem[];
+  uint32_t* vec_s = reinterpret_cast<uint32_t*>(smem);
+  int* xch = smem + 16;
+  const int rank = C > 1 ? cluster_rank() : 0;
+  const int b = blockIdx.x / C, t = threadIdx.x & 31;
   const int lo = min(min(s.match, s.mismatch), min(s.nn, s.nx));
   if (threadIdx.x < 16) {
     // score vector of a code: (score(a, b) - lo) << 4b for b codes 0-7
@@ -545,14 +661,24 @@ __global__ void __launch_bounds__(32 * W, 1) row_warps_kernel(
       v |= (uint32_t)(base_score(threadIdx.x, bc, s) - lo) << (4 * bc);
     vec_s[threadIdx.x] = v;
   }
-  __syncthreads();
 
   const int YS = 2 * band + 1, ymax = 2 * band;
-  WarpLanes<R, W> L;
+  WarpLanes<R, W, C> L;
   L.t = t;
-  L.w = threadIdx.x >> 5;
+  L.w = rank * W + (threadIdx.x >> 5);
   L.xch = xch;
-  L.j0 = threadIdx.x * R;
+  if constexpr (C > 1) {
+    // lane r >= 1 pushes to rank + r, lane 0 of warp 0 to rank - 1
+    const int to = t ? rank + t : rank - 1;
+    L.push = (t ? to < C : threadIdx.x == 0 && to >= 0)
+                 ? cluster_peer(xch, to)
+                 : nullptr;
+    cluster_arrive();  // every block of the cluster has started
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+  L.j0 = (rank * 32 * W + threadIdx.x) * R;
   L.gj0 = s.gap * L.j0;
 #pragma unroll
   for (int k = 0; k < R; ++k) L.ug[k] = L.j0 + k == ymax ? s.neg : s.gap;
@@ -634,239 +760,102 @@ __global__ void __launch_bounds__(32 * W, 1) row_warps_kernel(
       wb1 = nb1;
     }
   }
-}
-
-template <int R, int W>
-int launch_warp(const void* a_pk, const void* b_pk, const void* begin_a,
-                const void* end_a, const void* a_len, const void* x_size,
-                const void* force_start, int B, int aw, int xw, int band,
-                const Scoring& s, void* dirs, void* last_row, void* diag,
-                cudaStream_t stream) {
-  auto kernel = row_warp_kernel<R>;
-  if constexpr (W > 1) kernel = row_warps_kernel<R, W>;
-  kernel<<<B, 32 * W, 0, stream>>>(
-      (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
-      (const int*)end_a, (const int*)a_len, (const int*)x_size,
-      (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,
-      (int*)diag);
-  return (int)cudaGetLastError();
-}
-
-// ---- band 512 .. 4095: a block per problem --------------------------------
-
-// R = 2, 4 or 8 consecutive band lanes a thread; at most 1024 threads a
-// block, so at most 64 registers a thread
-template <int R>
-__global__ void __launch_bounds__(1024) row_forward_lanes_kernel(
-    const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
-    const int* __restrict__ begin_a, const int* __restrict__ end_a,
-    const int* __restrict__ a_len, const int* __restrict__ x_size,
-    const int* __restrict__ force_start, int aw, int xw, int band, Scoring s,
-    int* __restrict__ dirs, int* __restrict__ last_row,
-    int* __restrict__ diag) {
-  extern __shared__ int smem[];
-  const int YS = 2 * band + 1, ymax = 2 * band;
-  int* row_s = smem;           // YS + 1: the previous row, lane YS stays 0
-  int* tot_c = smem + YS + 1;  // 32 warp totals (c part)
-  int* tot_s = tot_c + 32;     // 32 warp totals (s part)
-  const int b = blockIdx.x, t = threadIdx.x, j0 = t * R;
-  const int lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
-  const unsigned full = 0xffffffffu;
-  const int NEG = s.neg;
-
-  const int ba = begin_a[b], ea = end_a[b], al = a_len[b], xs = x_size[b];
-  const bool fs = force_start[b] != 0;
-  const uint8_t* ap = a_pk + (size_t)b * (aw / 2);
-  const uint8_t* bp = b_pk + (size_t)b * (xw / 2);
-  int* dir_out = dirs + (size_t)b * (xw / 16) * YS;
-  int* lr = last_row + (size_t)b * YS;
-  int* dg = diag + (size_t)b * YS;
-
-  const int stop = xs <= 0 ? 0 : min(xw, (xs + 15) / 16 * 16);
-  const int exact_rows = ba < 0 ? stop : min(stop, band + 1);
-  const int jd_base = ea - ba + band;  // diag lane of row i: jd_base - i
-  for (int q = t; q < YS + 1; q += blockDim.x) row_s[q] = 0;
-  __syncthreads();
-
-  unsigned packed[R];  // each lane's directions of up to 16 rows
-#pragma unroll
-  for (int k = 0; k < R; ++k) packed[k] = 0;
-  for (int i = 0; i < stop; ++i) {
-    const bool exact = i < exact_rows;
-    const int bc = nibble(bp, i);
-    // the previous row at lanes j0 .. j0+R (lane j's diag, lane j-1's up)
-    int prev[R + 1];
-#pragma unroll
-    for (int k = 0; k <= R; ++k) prev[k] = j0 + k < YS ? row_s[j0 + k] : 0;
-    // each lane's map (c, s) before the left dependency, and what its
-    // direction needs: its score, 4 bits a lane (the wrapper checks the
-    // scores lie in [-8, 7]), its diag and up values, recomputed from the
-    // previous row so that fewer registers live across the barriers
-    int c[R], sl[R], row[R];
-    bool valid[R];
-    unsigned sc_pk = 0;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int j = j0 + k;
-      const int v = j < YS ? base_score(nibble(ap, i + j), bc, s) : 0;
-      sc_pk |= (unsigned)(v + 8) << (4 * k);
-    }
-    const auto sc = [&](int k) { return (int)((sc_pk >> (4 * k)) & 15) - 8; };
-    const auto dacc = [&](int k) { return prev[k] + sc(k); };
-    const auto up = [&](int k) {
-      return j0 + k == ymax ? s.gap : prev[k + 1] + s.gap;
-    };
-    if (exact) {
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int j = j0 + k;
-        const bool in_band = j < YS, last = j == ymax, first = j == 0;
-        const int pos = in_band ? ba - band + i + j : 0;
-        const bool valid_pos = pos >= 0 && pos < al, pos0 = pos == 0;
-        const int base_gen = last ? dacc(k) : max(dacc(k), up(k));
-        int base;
-        bool v;
-        if (i == 0) {
-          const bool cond_b = fs && pos > s.force_max_gap && pos < al;
-          v = (valid_pos && (!fs || pos <= s.force_max_gap)) || cond_b;
-          base = cond_b ? sc(k) : max(sc(k), s.gap);
-          sl[k] = (v && pos > 0 && !first) ? 0 : NEG;
-        } else {
-          const bool fm_le = i <= s.force_max_gap;
-          const bool fresh = pos0 && (!fs || fm_le);
-          const bool forced = pos0 && fs && !fm_le;
-          if (fresh)
-            base = last ? max(sc(k), s.gap) : max(max(sc(k), up(k)), s.gap);
-          else if (forced)
-            base = last ? sc(k) : max(sc(k), up(k));
-          else
-            base = base_gen;
-          v = valid_pos;
-          sl[k] = (v && !fresh && !forced && !first) ? s.gap : NEG;
-        }
-        valid[k] = v && in_band;
-        c[k] = valid[k] ? base : 0;
-      }
-      // this thread's R maps composed in order
-      int C = c[0], S = sl[0];
-#pragma unroll
-      for (int k = 1; k < R; ++k) {
-        C = max(c[k], max(sl[k] + C, NEG));
-        S = max(S + sl[k], NEG);
-      }
-      // warp level: inclusive composition over threads
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, C, d);
-        const int s_l = __shfl_up_sync(full, S, d);
-        if (lane >= d) {
-          C = max(C, max(S + c_l, NEG));
-          S = max(s_l + S, NEG);
-        }
-      }
-      if (lane == 31) {
-        tot_c[warp] = C;
-        tot_s[warp] = S;
-      }
-      __syncthreads();
-      // block level: every warp scans the warp totals and applies the
-      // composition of the warps before its own
-      int tc = lane < nwarps ? tot_c[lane] : NEG;
-      int ts = lane < nwarps ? tot_s[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, tc, d);
-        const int s_l = __shfl_up_sync(full, ts, d);
-        if (lane >= d) {
-          tc = max(tc, max(ts + c_l, NEG));
-          ts = max(s_l + ts, NEG);
-        }
-      }
-      const int before = __shfl_sync(full, tc, (warp + 31) & 31);
-      // the row at lane j0 - 1: the threads before this one, composed
-      int x = __shfl_up_sync(full, C, 1), xs_l = __shfl_up_sync(full, S, 1);
-      if (lane == 0) x = NEG, xs_l = 0;
-      if (warp > 0) x = max(x, max(xs_l + before, NEG));
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        x = max(c[k], max(sl[k] + x, NEG));
-        row[k] = valid[k] ? x : 0;
-      }
-    } else {
-      // prefix max of c[k] - GAP*k, then + GAP*j
-      int M = NEG;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int j = j0 + k;
-        const bool last = j == ymax;
-        valid[k] = j < YS && ba - band + i + j < al;
-        c[k] = (valid[k] ? (last ? dacc(k) : max(dacc(k), up(k))) : 0) -
-               s.gap * j;
-        M = k == 0 ? c[k] : max(M, c[k]);
-      }
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, M, d);
-        if (lane >= d) M = max(M, c_l);
-      }
-      if (lane == 31) tot_c[warp] = M;
-      __syncthreads();
-      int tc = lane < nwarps ? tot_c[lane] : NEG;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int c_l = __shfl_up_sync(full, tc, d);
-        if (lane >= d) tc = max(tc, c_l);
-      }
-      const int before = __shfl_sync(full, tc, (warp + 31) & 31);
-      int x = __shfl_up_sync(full, M, 1);
-      if (lane == 0) x = NEG;
-      if (warp > 0) x = max(x, before);
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        x = max(x, c[k]);
-        row[k] = valid[k] ? x + s.gap * (j0 + k) : 0;
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int j = j0 + k;
-      const bool in_band = j < YS, last = j == ymax, first = j == 0;
-      const bool mid = !first && !last;
-      const int pos = in_band ? ba - band + i + j : 0;
-      int d;
-      if (exact && pos == 0) {
-        const bool left_blocked = fs && i > s.force_max_gap;
-        d = row[k] == sc(k)
-                ? kDiag
-                : ((last || (row[k] == s.gap && !left_blocked)) ? kLeft
-                                                                : kUp);
-      } else {
-        int diag_t = dacc(k), up_t = up(k);
-        if (exact && i == 0) {
-          diag_t = sc(k);
-          up_t = fs ? ((pos >= 0 && pos <= s.force_max_gap) ? s.gap : NEG)
-                    : s.gap;
-        }
-        d = row[k] == diag_t
-                ? kDiag
-                : ((mid && row[k] == up_t) ? kUp
-                                           : (mid || last ? kLeft : kUp));
-      }
-      if (in_band) {
-        if (j == jd_base - i) dg[j] = row[k];
-        if (i == xs - 1) lr[j] = row[k];
-        packed[k] |= (unsigned)d << (2 * (i & 15));
-        if ((i & 15) == 15) {
-          dir_out[(size_t)(i >> 4) * YS + j] = (int)packed[k];
-          packed[k] = 0;
-        }
-        row_s[j] = row[k];  // every read of the previous row came before
-                            // the barrier above
-      }
-    }
-    __syncthreads();
+  if constexpr (C > 1) {
+    cluster_arrive();  // no block leaves while another may reach it
+    cluster_wait();
   }
+}
+
+// One launch's arguments; with info set, the launch only reports its
+// instance: C, W, R and the most clusters of it the card runs at once
+struct Launch {
+  const void *a_pk, *b_pk, *begin_a, *end_a, *a_len, *x_size, *force_start;
+  int B, aw, xw, band;
+  Scoring s;
+  void *dirs, *last_row, *diag;
+  cudaStream_t stream;
+  int* info;
+};
+
+// W warps of R lanes a thread in clusters of C blocks (one warp:
+// row_warp_kernel<R>, a block a problem)
+template <int R, int W, int C>
+int launch_warp(const Launch& p) {
+  const auto* a_pk = (const uint8_t*)p.a_pk;
+  const auto* b_pk = (const uint8_t*)p.b_pk;
+  const auto* begin_a = (const int*)p.begin_a;
+  const auto* end_a = (const int*)p.end_a;
+  const auto* a_len = (const int*)p.a_len;
+  const auto* x_size = (const int*)p.x_size;
+  const auto* force_start = (const int*)p.force_start;
+  if constexpr (W * C == 1) {
+    if (p.info) {
+      p.info[0] = 1, p.info[1] = 1, p.info[2] = R, p.info[3] = 0;
+      return 0;
+    }
+    row_warp_kernel<R><<<p.B, 32, 0, p.stream>>>(
+        a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start, p.aw, p.xw,
+        p.band, p.s, (int*)p.dirs, (int*)p.last_row, (int*)p.diag);
+    return (int)cudaGetLastError();
+  } else {
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = C;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.B * C);
+    cfg.blockDim = dim3(32 * W);
+    cfg.dynamicSmemBytes = (16 + 8 * C * W) * sizeof(int);
+    cfg.stream = p.stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = C > 1 ? 1 : 0;
+    const auto kernel = row_warps_kernel<R, W, C>;
+    if (p.info) {
+      p.info[0] = C, p.info[1] = W, p.info[2] = R;
+      cfg.gridDim = dim3(C);
+      cfg.numAttrs = 1;
+      return (int)cudaOccupancyMaxActiveClusters(&p.info[3], kernel, &cfg);
+    }
+    const int err = (int)cudaLaunchKernelEx(
+        &cfg, kernel, a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
+        p.aw, p.xw, p.band, p.s, (int*)p.dirs, (int*)p.last_row,
+        (int*)p.diag);
+    return err ? err : (int)cudaGetLastError();
+  }
+}
+
+// The first instance with 32*C*W*R >= 2*band+1 lanes
+int launch_row(const Launch& p) {
+  if (p.band < 0 || p.band > 4095) return (int)cudaErrorInvalidValue;
+  const int YS = 2 * p.band + 1;
+  // W warps of R lanes a thread, one block a problem
+#define GAM_WARP(WW, RR) \
+  if (YS <= 32 * (WW) * (RR)) return launch_warp<RR, WW, 1>(p)
+  // clusters of C blocks of W warps
+#define GAM_CLUSTER(CC, WW, RR) \
+  if (YS <= 32 * (CC) * (WW) * (RR)) return launch_warp<RR, WW, CC>(p)
+  GAM_WARP(1, 1);
+  GAM_WARP(1, 2);
+  GAM_WARP(1, 4);
+  GAM_WARP(1, 6);
+  GAM_WARP(1, 8);
+  GAM_WARP(1, 10);
+  GAM_WARP(4, 3);
+  GAM_WARP(4, 4);
+  GAM_WARP(4, 5);
+  GAM_WARP(8, 3);
+  GAM_WARP(8, 4);
+  GAM_WARP(8, 5);
+  GAM_WARP(16, 3);
+  GAM_CLUSTER(2, 8, 4);
+  GAM_CLUSTER(2, 16, 3);
+  GAM_CLUSTER(2, 16, 4);
+  GAM_CLUSTER(8, 8, 3);
+  GAM_CLUSTER(8, 8, 4);
+#undef GAM_CLUSTER
+#undef GAM_WARP
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -879,39 +868,18 @@ extern "C" int bsw_row_forward(const void* a_pk, const void* b_pk,
                                int nx, int gap, int force_max_gap, int neg,
                                void* dirs, void* last_row, void* diag,
                                void* stream) {
-  if (band < 0 || band > 4095) return (int)cudaErrorInvalidValue;
-  const int YS = 2 * band + 1;
-  const Scoring s{match, mismatch, nn, nx, gap, force_max_gap, neg};
-  const cudaStream_t st = (cudaStream_t)stream;
-  // W warps of R lanes a thread: the first instance with 32*W*R >= 2*band+1
-#define GAM_WARP(WW, RR)                                                    \
-  if (YS <= 32 * (WW) * (RR))                                               \
-  return launch_warp<RR, WW>(a_pk, b_pk, begin_a, end_a, a_len, x_size,     \
-                             force_start, B, aw, xw, band, s, dirs,         \
-                             last_row, diag, st)
-  GAM_WARP(1, 1);
-  GAM_WARP(1, 2);
-  GAM_WARP(1, 4);
-  GAM_WARP(1, 6);
-  GAM_WARP(1, 8);
-  GAM_WARP(1, 10);
-  GAM_WARP(4, 3);
-  GAM_WARP(4, 4);
-  GAM_WARP(4, 5);
-  GAM_WARP(8, 3);
-  GAM_WARP(8, 4);
-#undef GAM_WARP
-  // lanes a thread: the fewest that keep the block at 1024 threads
-  const int R = band <= 1023 ? 2 : band <= 2047 ? 4 : 8;
-  const int threads = ((YS + R - 1) / R + 31) / 32 * 32;
-  const size_t shmem = (YS + 1 + 64) * sizeof(int);
-  auto kernel = R == 2   ? row_forward_lanes_kernel<2>
-                : R == 4 ? row_forward_lanes_kernel<4>
-                         : row_forward_lanes_kernel<8>;
-  kernel<<<B, threads, shmem, st>>>(
-      (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
-      (const int*)end_a, (const int*)a_len, (const int*)x_size,
-      (const int*)force_start, aw, xw, band, s, (int*)dirs, (int*)last_row,
-      (int*)diag);
-  return (int)cudaGetLastError();
+  return launch_row({a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start, B,
+                 aw, xw, band,
+                 Scoring{match, mismatch, nn, nx, gap, force_max_gap, neg},
+                 dirs, last_row, diag, (cudaStream_t)stream, nullptr});
+}
+
+// The instance that takes `band`: info[0..3] = C, W, R and the most
+// clusters of it that the card runs at once (cudaOccupancyMaxActiveClusters;
+// 0 for the one-warp kernel, which runs no cluster)
+extern "C" int bsw_row_instance(int band, int* info) {
+  Launch p = {};
+  p.band = band;
+  p.info = info;
+  return launch_row(p);
 }

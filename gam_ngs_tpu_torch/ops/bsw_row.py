@@ -5,10 +5,11 @@
 Both compute bsw_ref.fill_matrix cell for cell on the valid band cells
 and produce the same output bit for bit on the whole output (the kernel
 source note gives the per-lane cases and the layout).  The kernel runs W
-warps a problem of R band lanes a thread in registers up to band 511
-(one warp up to 159: WARP_WIDTHS; four or eight from 160:
-MULTIWARP_WIDTHS), then a block of 2, 4 or 8 lanes a thread up to
-MAX_BAND.
+warps a problem of R band lanes a thread in registers (`row_instance`):
+one warp up to band 159 (WARP_WIDTHS), four, eight or sixteen in a
+block up to 767 (MULTIWARP_WIDTHS), then a thread-block cluster of two
+blocks of eight or sixteen warps up to 2047 and of eight blocks of eight
+warps up to MAX_BAND (CLUSTER_WIDTHS).
 
 Inputs are forward_antidiag's (B problems): a_pk (B, AW/2) and b_pk
 (B, XW/2) uint8 4-bit packed windows with AW = a_width(XW, band), and
@@ -41,17 +42,35 @@ from .bsw_antidiag import (
 from .bsw_ref import FORCE_MAXGAP_LEN, GAP
 
 launches = 0  # kernel launches by forward_row (CPU runs not counted)
-MAX_BAND = 4095  # 2 * band + 1 lanes, at most 8 a thread, 1024 threads
+# 2 * band + 1 lanes: 8192 = 8 blocks (a portable cluster) x 8 warps x
+# 32 threads x 4 lanes a thread
+MAX_BAND = 4095
 # csrc/bsw_row.cu's instances of W warps a problem, R band lanes a
 # thread in registers: each takes the bands whose 2*band+1 lanes need
-# more than the instance before it and at most 32*W*R (the launcher's
+# more than the instance before it and at most 32*C*W*R (the launcher's
 # choice).  One warp (row_warp_kernel<R>) up to band 159:
 WARP_WIDTHS = (1, 2, 4, 6, 8, 10)
-# then (W, R) (row_warps_kernel<R, W>) up to band 191, 255, 319, 383,
-# 511: the fewer lanes a thread, the shorter a row, up to eight warps;
-# bands 512.. run a block of 2, 4 or 8 lanes a thread up to band 1023,
-# 2047, 4095
-MULTIWARP_WIDTHS = ((4, 3), (4, 4), (4, 5), (8, 3), (8, 4))
+# then (W, R) (row_warps_kernel<R, W, 1>, one block) up to band 191, 255,
+# 319, 383, 511, 639, 767: the fewer lanes a thread, the shorter a row,
+# up to the SM's registers (eight warps of 5, sixteen of 3)
+MULTIWARP_WIDTHS = ((4, 3), (4, 4), (4, 5), (8, 3), (8, 4), (8, 5), (16, 3))
+# then (C, W, R) (row_warps_kernel<R, W, C>, a cluster of C blocks) up to
+# band 1023, 1535, 2047, 3071, 4095: two blocks up to 2047, the most that
+# runs a 64-problem chunk in one wave, then eight
+CLUSTER_WIDTHS = ((2, 8, 4), (2, 16, 3), (2, 16, 4), (8, 8, 3), (8, 8, 4))
+
+
+def row_instance(band: int) -> tuple[int, int, int]:
+    """(C, W, R) of the kernel instance the launcher picks at `band`: the
+    first with 32*C*W*R >= 2*band+1 lanes."""
+    if not 0 <= band <= MAX_BAND:
+        raise ValueError(f"band {band} outside 0..{MAX_BAND}")
+    for c, w, r in ([(1, 1, r) for r in WARP_WIDTHS]
+                    + [(1, w, r) for w, r in MULTIWARP_WIDTHS]
+                    + list(CLUSTER_WIDTHS)):
+        if 2 * band + 1 <= 32 * c * w * r:
+            return c, w, r
+    raise AssertionError("the widest instance covers MAX_BAND")
 
 _fn = None
 
@@ -206,6 +225,22 @@ def _kernel():
     return _fn
 
 
+def instance_info(band: int) -> tuple[int, int, int, int]:
+    """(C, W, R, max active clusters) of the CUDA instance at `band`, the
+    last from cudaOccupancyMaxActiveClusters (0 for the one-warp kernel,
+    which runs no cluster); builds the library."""
+    from .._build import library
+
+    fn = library().bsw_row_instance
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 4)()
+    err = fn(band, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"bsw_row_instance({band}): CUDA error {err}")
+    return tuple(info)
+
+
 def forward_row(a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
                 band: int):
     """Forward fill of B problems -> (dirs, last_row, diag).  CUDA
@@ -221,9 +256,10 @@ def forward_row(a_pk, b_pk, begin_a, end_a, a_len, x_size, force_start,
     xw = 2 * b_pk.shape[1]
     YS = 2 * band + 1
     if not 0 <= band <= MAX_BAND:
-        raise ValueError(f"band {band}: the kernel holds at most 8 band "
-                         f"lanes in each of 1024 threads and takes band <= "
-                         f"{MAX_BAND}")
+        raise ValueError(f"band {band}: the kernel holds the 2*band+1 lanes "
+                         f"of a row in the registers of at most one cluster "
+                         f"(8 blocks of 256 threads, 4 lanes a thread) and "
+                         f"takes band <= {MAX_BAND}")
     if xw % 16:
         raise ValueError(f"window {xw}: a multiple of 16 rows")
     if not all(-8 <= v <= 7 for v in (MATCH_S, MISMATCH_S, NN_S, NX_S)):

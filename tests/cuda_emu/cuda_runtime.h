@@ -8,11 +8,20 @@
 // require on the card; __syncthreads waits for the whole block.
 // __shared__ arrays become statics (one block runs at a time); the test
 // rewrites `extern __shared__` buffers and <<<>>> launches.
+// cudaLaunchKernelEx with a cluster dimension C runs the C blocks of each
+// cluster together, one cluster after another: each block has its own
+// warps, block barrier and dynamic shared memory, cluster_peer maps an
+// address of it to the same place in another rank's, and cluster_arrive /
+// cluster_wait are the halves of one barrier over all the cluster's
+// threads (the CUDA source defines these four helpers itself, in PTX,
+// only under nvcc).
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 
@@ -37,29 +46,59 @@ struct alignas(16) uint4 {
 };
 inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 using std::max;
 using std::min;
 
 namespace emu {
 struct Warp {
   std::barrier<> bar{32};
-  long long vals[32];
+  long long vals[2][32];  // a collective's posts, two buffers in turn
 };
 inline thread_local Warp* my_warp;
+inline thread_local int turn;  // the buffer of this thread's next collective
 inline thread_local std::barrier<>* my_block;
 inline thread_local int* dyn_smem;
+inline thread_local int rank;          // the block's rank in its cluster
+inline thread_local int** rank_smem;   // each rank's dynamic shared memory
+inline thread_local std::barrier<>* my_cluster;
+inline thread_local std::optional<std::barrier<>::arrival_token> arrived;
+
+// every lane posts v and meets the warp once; returns the posts.  The
+// buffers alternate: a lane writes one again only two collectives later,
+// after the barrier of the one between, which every lane reaches only
+// once it has read this one's posts.
+inline const long long* post(long long v) {
+  long long* buf = my_warp->vals[turn];
+  turn ^= 1;
+  buf[threadIdx.x & 31] = v;
+  my_warp->bar.arrive_and_wait();
+  return buf;
+}
 
 // every lane posts v, then reads lane src's (its own when src is outside
 // the warp, as a shuffle does)
 inline long long exchange(long long v, int src) {
-  const int lane = threadIdx.x & 31;
-  my_warp->vals[lane] = v;
-  my_warp->bar.arrive_and_wait();
-  const long long r = (src >= 0 && src < 32) ? my_warp->vals[src] : v;
-  my_warp->bar.arrive_and_wait();
-  return r;
+  const long long* buf = post(v);
+  return (src >= 0 && src < 32) ? buf[src] : v;
 }
 
 template <class K, class... A>
@@ -85,7 +124,70 @@ void launch(K kernel, dim3 grid, int block, size_t shmem, cudaStream_t,
         for (auto& th : threads) th.join();
       }
 }
+
+// A 1-D grid in clusters of csize blocks, the clusters one after another
+template <class K, class... A>
+void launch_clusters(K kernel, unsigned grid, int block, size_t shmem,
+                     unsigned csize, A... args) {
+  for (unsigned b0 = 0; b0 < grid; b0 += csize) {
+    std::vector<std::vector<Warp>> warps;
+    std::vector<std::unique_ptr<std::barrier<>>> blocks;
+    std::vector<std::vector<int>> dyn;
+    std::vector<int*> smem;
+    for (unsigned r = 0; r < csize; ++r) {
+      warps.emplace_back((block + 31) / 32);
+      blocks.push_back(std::make_unique<std::barrier<>>(block));
+      dyn.emplace_back(shmem / sizeof(int) + 1);
+      smem.push_back(dyn.back().data());
+    }
+    std::barrier<> cluster_bar(csize * block);
+    std::vector<std::thread> threads;
+    for (unsigned r = 0; r < csize; ++r)
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, r, t] {
+          threadIdx.x = t;
+          blockIdx = {b0 + r, 0, 0};
+          blockDim.x = block;
+          my_warp = &warps[r][t / 32];
+          my_block = blocks[r].get();
+          dyn_smem = smem[r];
+          rank = (int)r;
+          rank_smem = smem.data();
+          my_cluster = &cluster_bar;
+          kernel(args...);
+        });
+    for (auto& th : threads) th.join();
+  }
+}
 }  // namespace emu
+
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(E...), A&&... args) {
+  unsigned csize = 1;
+  for (unsigned a = 0; a < cfg->numAttrs; ++a)
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension)
+      csize = cfg->attrs[a].val.clusterDim.x;
+  if (cfg->gridDim.x % csize) return cudaErrorInvalidValue;
+  emu::launch_clusters(kernel, cfg->gridDim.x, (int)cfg->blockDim.x,
+                       cfg->dynamicSmemBytes, csize, E(args)...);
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, K*,
+                                           const cudaLaunchConfig_t*) {
+  *n = 0;  // no card to ask
+  return cudaSuccess;
+}
+inline int cluster_rank() { return emu::rank; }
+inline int* cluster_peer(int* p, int rank) {
+  return emu::rank_smem[rank] + (p - emu::dyn_smem);
+}
+inline void cluster_arrive() { emu::arrived = emu::my_cluster->arrive(); }
+inline void cluster_wait() {
+  emu::my_cluster->wait(std::move(*emu::arrived));
+  emu::arrived.reset();
+}
 
 template <class T>
 T __shfl_up_sync(unsigned, T v, int d) {
@@ -101,21 +203,15 @@ T __shfl_sync(unsigned, T v, int src) {
   return (T)emu::exchange((long long)v, src & 31);
 }
 inline bool __any_sync(unsigned, bool p) {
-  const int lane = threadIdx.x & 31;
-  emu::my_warp->vals[lane] = p;
-  emu::my_warp->bar.arrive_and_wait();
+  const long long* buf = emu::post(p);
   bool r = false;
-  for (int i = 0; i < 32; ++i) r = r || emu::my_warp->vals[i];
-  emu::my_warp->bar.arrive_and_wait();
+  for (int i = 0; i < 32; ++i) r = r || buf[i];
   return r;
 }
 inline int __reduce_max_sync(unsigned, int v) {
-  const int lane = threadIdx.x & 31;
-  emu::my_warp->vals[lane] = v;
-  emu::my_warp->bar.arrive_and_wait();
-  long long r = emu::my_warp->vals[0];
-  for (int i = 1; i < 32; ++i) r = std::max(r, emu::my_warp->vals[i]);
-  emu::my_warp->bar.arrive_and_wait();
+  const long long* buf = emu::post(v);
+  long long r = buf[0];
+  for (int i = 1; i < 32; ++i) r = std::max(r, buf[i]);
   return (int)r;
 }
 inline void __syncwarp() { emu::my_warp->bar.arrive_and_wait(); }

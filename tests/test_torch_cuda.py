@@ -61,26 +61,28 @@ PROBLEM_SETS = {
     "ties_band150": (150, tp.tie_problems),
 }
 # the first and last band of each instance of the row forward, one warp
-# (up to band 159) or several warps a problem (160-511), and 512, its
-# block kernel's first (ragged and soak problems, rows past the exact
-# ones included)
-PROBLEM_SETS |= {f"bounds_band{band}": (band, lambda band=band:
-                                        tp.boundary_problems(band))
-                 for band in tp.row_boundary_bands()}
+# (up to band 159), several warps in a block (160-767) or a cluster of
+# blocks (768-4095) (ragged and soak problems, rows past the exact ones
+# included): both forwards and their walks up to band 1023, the row
+# forward alone past it
+BOUNDS_SETS = {f"bounds_band{band}": (band, lambda band=band:
+                                      tp.boundary_problems(band))
+               for band in tp.row_boundary_bands()}
+PROBLEM_SETS |= {k: v for k, v in BOUNDS_SETS.items() if v[0] <= 1023}
 # the anti-diagonal forward's four warps per problem; the row forward's
-# two lanes a thread
+# sixteen warps of three lanes
 WIDE_SETS = {
     "soak8_band700": (700, lambda: tp.soak_problems(8, seed=3, max_len=600)),
 }
-# past the anti-diagonal forward's band 1023: the row forward's four and
-# eight lanes a thread (the walk stages 16 word rows of 2*band+1 lanes and
-# takes the row form's words up to band 1023)
+# past the anti-diagonal forward's band 1023: the row forward's clusters
+# of two and eight blocks (the walk stages 16 word rows of 2*band+1 lanes
+# and takes the row form's words up to band 1023)
 ROW_ONLY_SETS = {
     "soak4_band2000": (2000, lambda: tp.soak_problems(4, seed=9,
                                                       max_len=400)),
     "soak4_band4000": (4000, lambda: tp.soak_problems(4, seed=4,
                                                       max_len=300)),
-}
+} | {k: v for k, v in BOUNDS_SETS.items() if v[0] > 1023}
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEM_SETS | WIDE_SETS))

@@ -308,30 +308,37 @@ def test_row_merges_match_jax(tmp_path, corpus, monkeypatch):
 
 
 WARP_WIDTHS = bsw_row.WARP_WIDTHS  # row_warp_kernel<R>'s band lanes a thread
-MULTIWARP_WIDTHS = bsw_row.MULTIWARP_WIDTHS  # row_warps_kernel<R, W>'s (W, R)
+MULTIWARP_WIDTHS = bsw_row.MULTIWARP_WIDTHS  # row_warps_kernel's (W, R), C = 1
+CLUSTER_WIDTHS = bsw_row.CLUSTER_WIDTHS  # row_warps_kernel's (C, W, R)
 NEG, GAP = bsw_row.NEG, bsw_row.GAP
 
 
-def warp_scan_model(c, s, R, lean, rng, W=1):
+def warp_scan_model(c, s, R, lean, rng, W=1, C=1):
     """row_warp_kernel's (W = 1) and row_warps_kernel's row scan in int32
-    numpy, step for step: W warps of 32 threads of R consecutive lanes;
-    lanes past the row are padding, here random, since no band lane may
-    read them.  Exact (maps (c, s)): each thread composes its R maps in
-    order, a 5-level shuffle scan of the thread totals in each warp
-    (thread t takes thread t-d's partial when t >= d), the warps' totals
-    (lane 31's) composed in order into each warp's carry (NEG for warp
-    0), thread t's exclusive prefix (thread t-1's total) applied to the
-    carry (thread 0 starts at it), then the lanes in order; every
-    composition clamps at NEG.  Lean (c only): each thread's prefix max
-    of c - GAP*k over its lanes k, a max scan of those totals less GAP*j0
-    (j0 = (32*w + t)*R) shifted by one thread, which a shuffle returns
-    unchanged below lane d, the max of the warps' totals before each warp
-    (each warp's max of its threads' totals), then each lane's max(that
-    + GAP*j0, prefix) + GAP*k.  c, s: (B, n) int32, n <= 32*W*R.
-    Returns (row, firsts): firsts (B, W-1), each warp's first lane
-    recomputed as the warp before it does for its up neighbour, from the
-    map (c, s) that warp published, (c, GAP) for lean, and the row at the
-    lane before."""
+    numpy, step for step: W warps of 32 threads of R consecutive lanes in
+    each of C blocks, G = C*W warps in all, warp g = k*W + w holding the
+    lanes of block rank k's warp w; lanes past the row are padding, here
+    random, since no band lane may read them.  Exact (maps (c, s)): each
+    thread composes its R maps in order, a 5-level shuffle scan of the
+    thread totals in each warp (thread t takes thread t-d's partial when
+    t >= d), the warps' totals (lane 31's) composed in warp order, rank
+    by rank, into each warp's carry (NEG for warp 0), thread t's
+    exclusive prefix (thread t-1's total) applied to the carry (thread 0
+    starts at it), then the lanes in order; every composition clamps at
+    NEG.  Lean (c only): each thread's prefix max of c - GAP*k over its
+    lanes k, a max scan of those totals less GAP*j0 (j0 = (32*g + t)*R)
+    shifted by one thread, which a shuffle returns unchanged below lane
+    d, the max of the totals of the warps before each warp (each warp's
+    max of its threads' totals; in one block a running max over the
+    block's warps, in a cluster lane l of warp g taking the totals of
+    warps l and l + 32 below g and the warp their max), then each lane's
+    max(that + GAP*j0, prefix) + GAP*k.  c, s: (B, n) int32,
+    n <= 32*G*R.  Returns (row, firsts): firsts (B, G-1), each warp's
+    first lane recomputed as the warp before it does for its up
+    neighbour (in a cluster, the last warp of a block from the map the
+    next rank's first warp pushed), from the map (c, s) that warp
+    published, (c, GAP) for lean, and the row at the lane before."""
+    W = C * W  # the problem's warps, in order
     B, n = c.shape
     N = 32 * W * R
     i32 = np.int32
@@ -349,8 +356,17 @@ def warp_scan_model(c, s, R, lean, rng, W=1):
             up[:, :, d:] = y[:, :, :-d]
             y = np.maximum(y, up)
         carry = np.full((B, W), NEG, i32)
-        for w in range(1, W):
-            carry[:, w] = np.maximum(carry[:, w - 1], tot[:, w - 1])
+        if C == 1:
+            for w in range(1, W):
+                carry[:, w] = np.maximum(carry[:, w - 1], tot[:, w - 1])
+        else:
+            lane = np.arange(32)
+            for g in range(1, W):
+                z = np.full((B, 32), NEG, i32)
+                for slot in (lane, lane + 32):
+                    on = slot < g
+                    z[:, on] = np.maximum(z[:, on], tot[:, slot[on]])
+                carry[:, g] = z.max(axis=1)
         x = np.maximum(y, carry[:, :, None]) + i32(GAP) * j0
         row = np.maximum(x[..., None], pl) + i32(GAP) * k
         c_first = cc[:, 1:, 0, 0]
@@ -390,21 +406,24 @@ def warp_scan_model(c, s, R, lean, rng, W=1):
     return row[:, :n], firsts
 
 
-def scan_model_widths(W, R):
+def scan_model_widths(W, R, C=1):
     """The narrowest and widest row (2*band+1 lanes, odd) that the
-    instance of W warps of R lanes a thread takes, and one between."""
-    caps = [32 * r for r in WARP_WIDTHS] + [32 * w * r
-                                           for w, r in MULTIWARP_WIDTHS]
-    hi = 32 * W * R
+    instance of C blocks of W warps of R lanes a thread takes, and one
+    between."""
+    caps = ([32 * r for r in WARP_WIDTHS]
+            + [32 * w * r for w, r in MULTIWARP_WIDTHS]
+            + [32 * c * w * r for c, w, r in CLUSTER_WIDTHS])
+    hi = 32 * C * W * R
     lo = caps[caps.index(hi) - 1] + 1 if caps.index(hi) else 1
     return sorted({lo, (lo + hi - 1) // 2 | 1, hi - 1})
 
 
-def check_scan_model(W, R, rng):
+def check_scan_model(W, R, rng, C=1):
     """warp_scan_model against the plain version's _scan_exact and
     _scan_lean on random scores with runs of NEG slopes; each warp's
     recomputed first lane against the plain row there."""
-    for n in scan_model_widths(W, R):
+    W_all = C * W
+    for n in scan_model_widths(W, R, C):
         B = 48
         c = rng.integers(-3000, 3000, (B, n)).astype(np.int32)
         c[:4] = 0  # invalid lanes hold 0
@@ -413,19 +432,20 @@ def check_scan_model(W, R, rng):
             start = int(rng.integers(0, n))
             s[row, start:start + int(rng.integers(1, n + 1))] = NEG
         s[-1] = NEG
-        firsts = 32 * R * np.arange(1, W)
+        firsts = 32 * R * np.arange(1, W_all)
         inside = firsts < n
         for lean in (False, True):
             if lean:
                 want = bsw_row._scan_lean(torch.from_numpy(c)).numpy()
-                got, got_firsts = warp_scan_model(c, None, R, True, rng, W)
+                got, got_firsts = warp_scan_model(c, None, R, True, rng, W,
+                                                  C)
             else:
                 want = bsw_row._scan_exact(torch.from_numpy(c),
                                            torch.from_numpy(s)).numpy()
-                got, got_firsts = warp_scan_model(c, s, R, False, rng, W)
-            assert (got == want).all(), (W, R, n, lean)
+                got, got_firsts = warp_scan_model(c, s, R, False, rng, W, C)
+            assert (got == want).all(), (C, W, R, n, lean)
             assert (got_firsts[:, inside] == want[:, firsts[inside]]).all(), \
-                (W, R, n, lean)
+                (C, W, R, n, lean)
 
 
 @pytest.mark.parametrize("R", WARP_WIDTHS)
@@ -448,13 +468,35 @@ def test_multiwarp_scan_model_matches_plain_scans(W, R):
     check_scan_model(W, R, np.random.default_rng(100 * W + R))
 
 
+@pytest.mark.parametrize("C,W,R", CLUSTER_WIDTHS,
+                         ids=[f"{c}x{w}x{r}" for c, w, r in CLUSTER_WIDTHS])
+def test_cluster_scan_model_matches_plain_scans(C, W, R):
+    """The same for the instances of C blocks of a cluster: the carry of
+    the warps of the ranks before (their totals composed in order, or
+    their max as lanes l and l + 32 of each warp take it), and the first
+    lane of the next rank, at the narrowest and widest row each instance
+    takes."""
+    check_scan_model(W, R, np.random.default_rng(1000 * C + 100 * W + R), C)
+
+
 def test_instance_widths_match_the_launcher():
-    """ops/bsw_row.py's WARP_WIDTHS and MULTIWARP_WIDTHS, from which the
-    tests take each instance's first and last band, are the launcher's
-    own list of GAM_WARP(W, R) instances in csrc/bsw_row.cu, in order."""
+    """ops/bsw_row.py's WARP_WIDTHS, MULTIWARP_WIDTHS and CLUSTER_WIDTHS,
+    from which the tests take each instance's first and last band, are
+    the launcher's own list of GAM_WARP(W, R) and GAM_CLUSTER(C, W, R)
+    instances in csrc/bsw_row.cu, in order, and row_instance(band) is
+    the first of them that holds 2*band+1 lanes."""
     src = open(os.path.join(os.path.dirname(bsw_row.__file__), os.pardir,
                             "csrc", "bsw_row.cu")).read()
-    launched = [(int(w), int(r)) for w, r in
-                re.findall(r"^\s*GAM_WARP\((\d+), (\d+)\);", src, re.M)]
-    assert launched == ([(1, r) for r in WARP_WIDTHS]
-                        + list(MULTIWARP_WIDTHS))
+    launched = [(1, int(w), int(r)) if c is None else (int(c), int(w), int(r))
+                for c, w, r in (
+                    (m[1], m[2], m[3]) if m[1] else (None, m[4], m[5])
+                    for m in re.finditer(
+                        r"^\s*(?:GAM_CLUSTER\((\d+), (\d+), (\d+)\)"
+                        r"|GAM_WARP\((\d+), (\d+)\));", src, re.M))]
+    assert launched == ([(1, 1, r) for r in WARP_WIDTHS]
+                        + [(1, w, r) for w, r in MULTIWARP_WIDTHS]
+                        + list(CLUSTER_WIDTHS))
+    for band in (0, 159, 160, 511, 512, 1023, 1024, bsw_row.MAX_BAND):
+        inst = bsw_row.row_instance(band)
+        assert inst == next(i for i in launched
+                            if 2 * band + 1 <= 32 * i[0] * i[1] * i[2])

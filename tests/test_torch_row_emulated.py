@@ -4,14 +4,15 @@ gam_ngs_tpu_torch/csrc/bsw_row.cu is compiled by g++ against
 tests/cuda_emu/cuda_runtime.h, a stand-in runtime that runs each warp as
 32 host threads meeting at every shuffle (and a block's warps at every
 __syncthreads), and its C entry point bsw_row_forward is called on host
-arrays: every instance of one warp or of W warps a problem, at the
-first and last band it takes, and long windows at bands 150 and 300,
-bit for bit against the plain version forward_row_torch; and sources
-with one step of the W-warp exchange broken must fail there.  This
-holds the kernel's own code (lane layout, score vectors, the exact and
-lean rows, the exchange between warps, the records, the launcher's
-choice of instance) where there is no card; the card's tests
-(tests/test_torch_cuda.py) hold the compiled kernel.
+arrays: every instance of one warp or of up to eight warps a problem,
+at the first and last band it takes, and long windows at bands 150 and
+300, bit for bit against the plain version forward_row_torch; and
+sources with one step of the W-warp exchange broken must fail there.
+This holds the kernel's own code (lane layout, score vectors, the exact
+and lean rows, the exchange between warps, the records, the launcher's
+choice of instance) where there is no card; the wider instances and the
+clusters of blocks run in tests/test_torch_row_cluster_emulated.py; the
+card's tests (tests/test_torch_cuda.py) hold the compiled kernel.
 """
 
 import ctypes
@@ -27,11 +28,7 @@ import torch
 import torch_problems as tp
 from gam_ngs_tpu_torch.ops.bsw_antidiag import MATCH_S, MISMATCH_S, NN_S, NX_S
 from gam_ngs_tpu_torch.ops.bsw_ref import FORCE_MAXGAP_LEN, GAP
-from gam_ngs_tpu_torch.ops.bsw_row import (
-    MULTIWARP_WIDTHS,
-    NEG,
-    forward_row_torch,
-)
+from gam_ngs_tpu_torch.ops.bsw_row import NEG, forward_row_torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, os.pardir, "gam_ngs_tpu_torch", "csrc", "bsw_row.cu")
@@ -80,10 +77,10 @@ def run_emulated(fn, a_pk, b_pk, scal, band, xw):
     return outs
 
 
-# each instance's first and last band, of one warp and of W warps (the
-# block kernels above are held on the card)
-WARP_MAX_BAND = (32 * MULTIWARP_WIDTHS[-1][0] * MULTIWARP_WIDTHS[-1][1]
-                 - 1) // 2
+# each instance's first and last band up to eight warps of four lanes
+# (band 511), on the boundary set (the wider instances and the clusters:
+# tests/test_torch_row_cluster_emulated.py and the card)
+WARP_MAX_BAND = (32 * 8 * 4 - 1) // 2
 
 
 @pytest.mark.parametrize("band", [b for b in tp.row_boundary_bands()
@@ -167,8 +164,8 @@ MUTATIONS = {
     "drop_the_cross_warp_carry": (
         "if (v < L.w) y = max(y, q[v]);", "if (v < L.w) y = max(y, s.neg);"),
     "boundary_up_lane_from_the_wrong_buffer": (
-        "const int* q = L.xch + ((i - 1) & 1) * 4 * W + L.w + 1;",
-        "const int* q = L.xch + (i & 1) * 4 * W + L.w + 1;"),
+        "const int* q = L.xch + ((i - 1) & 1) * 4 * G + L.w + 1;",
+        "const int* q = L.xch + (i & 1) * 4 * G + L.w + 1;"),
     "last_row_checked_in_warp_0_only": (
         "(L.xs1 >= i0 && L.xs1 <= i0 + 15) ||",
         "(L.xs1 >= i0 && L.xs1 <= i0 + 15 && L.w == 0) ||"),
@@ -193,3 +190,4 @@ def test_row_warps_kernel_source_mutation_fails(tmp_path, mutation):
                         warnings_ok=True)
     assert not emulated_matches_plain(fn, long_windows(300, 8, more=True),
                                       300)
+

@@ -140,14 +140,21 @@ def ragged_problems(band: int, seed: int = 13):
 def row_boundary_bands() -> list[int]:
     """The first and last band of each instance of the row forward: one
     warp of R lanes a thread (bsw_row.WARP_WIDTHS: 2*band+1 <= 32*R),
-    W warps of R (MULTIWARP_WIDTHS: <= 32*W*R), then the first of its
-    block kernel of two lanes a thread: 15, 16, 31, 32, ..., 159, 160,
-    191, 192, ..., 383, 384, 511, 512."""
-    from gam_ngs_tpu_torch.ops.bsw_row import MULTIWARP_WIDTHS, WARP_WIDTHS
+    W warps of R in a block (MULTIWARP_WIDTHS: <= 32*W*R), then clusters
+    of C blocks of W warps (CLUSTER_WIDTHS: <= 32*C*W*R) up to MAX_BAND:
+    15, 16, 31, 32, ..., 159, 160, 191, 192, ..., 511, 512, 767, 768,
+    1023, 1024, ..., 3071, 3072, 4095."""
+    from gam_ngs_tpu_torch.ops.bsw_row import (
+        CLUSTER_WIDTHS,
+        MAX_BAND,
+        MULTIWARP_WIDTHS,
+        WARP_WIDTHS,
+    )
 
     last = ([(32 * r - 1) // 2 for r in WARP_WIDTHS]
-            + [(32 * w * r - 1) // 2 for w, r in MULTIWARP_WIDTHS])
-    return sorted({b for hi in last for b in (hi, hi + 1)})
+            + [(32 * w * r - 1) // 2 for w, r in MULTIWARP_WIDTHS]
+            + [(32 * c * w * r - 1) // 2 for c, w, r in CLUSTER_WIDTHS])
+    return sorted({b for hi in last for b in (hi, hi + 1) if b <= MAX_BAND})
 
 
 def boundary_problems(band: int):

@@ -4,6 +4,7 @@ against another version's, on one CUDA GPU, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--row] [--reps 5] [--out FILE]
     python3 tools/kernel_ab.py --gather DIR [--out FILE]
+    python3 tools/kernel_ab.py --floor [--out FILE]
 
 DIR holds the other version's bsw_antidiag.cu and bsw_walk.cu (for
 example `git show <commit>:gam_ngs_tpu_torch/csrc/bsw_antidiag.cu` into
@@ -26,7 +27,17 @@ both row forwards run B=64 problems at band 150 in windows XW 1024, 4096
 and 32768 (x_size 25000), and at bands 300 and 511 (--bands) in XW
 4096, timed base, this, this, base, their outputs held equal bit for
 bit; each time with its ns a row (the longest problem's rows), bound
-and multiple.
+and multiple, and this tree's instance (C, W, R) at the band.
+
+--floor: the floor of a row of the row forward's cluster instances,
+tools/cluster_floor.cu: B=64 problems of 4096 rows that do only the
+exchange between the warps of a problem (eight warps a block; one block
+with __syncthreads, or clusters of C = 2, 4, 8 blocks: pushing their
+totals into the later ranks before the cluster barrier, pulling them
+from the earlier ranks after it, pushing with a relaxed arrive behind
+the writers' fence, or pushing with an arrive on the receiver's
+mbarrier and no cluster barrier), timed C=1, then push, pull, relaxed,
+mbarrier and back at each C; ms a launch and ns a row.
 
 --gather DIR (instead of --base): DIR holds the other version's
 arena_gather.cu (same C entry point) and, optionally, its
@@ -201,6 +212,7 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
             fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, band)
             b_ms, b_by = chip_smoke.bound("bsw_row", fargs, None,
                                           outs["this"], ops_rate)
+            inst = bsw_row.instance_info(band)
             n = int(((sh.xs + 15) // 16 * 16).max())
             ms: dict = {}
             for turn in ("base", "this", "this", "base"):
@@ -212,9 +224,12 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
                       f"bsw_row_{turn}: ms {', '.join(f'{t:.4f}' for t in v)}"
                       f"; {statistics.mean(v) * 1e6 / n:.1f} ns/row over {n} "
                       f"rows; bound {b_ms:.6f} ms ({b_by}), "
-                      f"{statistics.mean(v) / b_ms:.1f}x it", flush=True)
+                      f"{statistics.mean(v) / b_ms:.1f}x it; this: C, W, R "
+                      f"= {inst[:3]}, {inst[3]} clusters at once",
+                      flush=True)
             res["shapes"][f"band{band}_xw{xw}"] = {
-                "ms": ms, "rows": n, "bound_ms": b_ms, "bound_by": b_by}
+                "ms": ms, "rows": n, "bound_ms": b_ms, "bound_by": b_by,
+                "instance": inst}
     return res
 
 
@@ -315,6 +330,39 @@ def gather_ab(base_dir: str, card: str) -> dict:
     return res
 
 
+def floor_ab(card: str, reps: int, B: int = 64, rows: int = 4096) -> dict:
+    """tools/cluster_floor.cu's exchange loop at C = 1, 2, 4, 8."""
+    res = {"card": card, "B": B, "rows": rows, "ms": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, log = build([os.path.join(ROOT, "tools", "cluster_floor.cu")],
+                         tmp)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[floor] {line.strip()}")
+        fn = lib.cluster_floor
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        out = torch.empty(B * 8 * 256, dtype=torch.int32, device=DEV)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        modes = {"block": 1, "pull": 0, "push": 1, "relaxed": 2, "mbarrier": 3}
+
+        def run(c, mode):
+            err = fn(c, modes[mode], B, rows, out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"cluster_floor C={c} {mode}: CUDA "
+                                   f"error {err}")
+
+        turns = ("push", "pull", "relaxed", "mbarrier")
+        for c, mode in [(1, "block")] + [(c, m) for c in (2, 4, 8)
+                                         for m in turns + turns[::-1]]:
+            ms = launch_ms(lambda: run(c, mode), reps)
+            res["ms"].setdefault(f"C{c}_{mode}", []).append(ms)
+            print(f"[floor] {card} | B={B} rows={rows} C={c} {mode}: "
+                  f"{ms:.4f} ms, {ms * 1e6 / rows:.1f} ns/row", flush=True)
+    return res
+
+
 def launch_ms(fn, reps: int) -> float:
     fn()  # warm-up
     times = []
@@ -336,6 +384,8 @@ def main() -> int:
                       "(or bsw_row.cu with --row)")
     mode.add_argument("--gather", help="DIR of arena_gather.cu (and, "
                       "optionally, arena_gather.py)")
+    mode.add_argument("--floor", action="store_true",
+                      help="time tools/cluster_floor.cu's exchange loop")
     ap.add_argument("--row", action="store_true",
                     help="time the row-form forward (DIR/bsw_row.cu)")
     ap.add_argument("--bands", default="300,511",
@@ -351,6 +401,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if args.floor:
+        line = json.dumps(floor_ab(card, args.reps))
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(line + "\n")
+        print(line)
+        return 0
     if args.gather:
         _build.library()
         line = json.dumps(gather_ab(args.gather, card))
