@@ -17,10 +17,10 @@ Phases (all by default; any failure raises and exits non-zero):
           warps per problem (the row forward: sixteen warps of three
           lanes), bands 2000 and 4000 with clusters of two and eight
           blocks, row forward only): the anti-diagonal forward with the
-          walk over its
-          words, the row forward with the walk over row-major words (up
-          to band 1023); the row forward and its walk (up to band 1023)
-          at the first and last band of each of its instances, one warp
+          walk over its words, the row forward with the walk over
+          row-major words (from band 1024 on its 3-row ring); the row
+          forward and its walk at the first and last band of each of
+          its instances, one warp
           a problem up to band 159, four, eight or sixteen warps up to
           767, clusters of two blocks of eight or sixteen warps up to
           2047 and of eight blocks of eight up to 4095 (15, 16,
@@ -95,7 +95,14 @@ Phases (all by default; any failure raises and exits non-zero):
           before each and read just after, their six outputs
           byte-identical, and (bands 511 and 1023) the row kernel and
           its walk against their plain versions on the row merge's
-          smallest chunk
+          smallest chunk; last the merge at band 4095 through
+          BswEngine(band=4095, kernel="row") (the row forward's clusters
+          of eight blocks, the device walk on its 3-row ring) and with
+          traceback="host" (the C++ walk), launch counts set to 0 just
+          before each and read just after (bsw_walk launched by the
+          first only), six outputs byte-identical, and the walk kernel
+          against its plain version over the kernel forward's words on
+          the device merge's smallest chunk
   create  the device block join at real size: the 5 Mbp layout with a
           pair every 2 bp (tests/torch_problems.py::scale_columns, ~5 M
           rows a side, 50x coverage), find_blocks_device on the card
@@ -144,7 +151,11 @@ Phases (all by default; any failure raises and exits non-zero):
           then the row forward at bands 160, 255, 300, 383, 511, 512,
           700, 1023, 2000 and 4095, XW 4096, and at band 150 on one 5 Mbp
           chunk's shape (XW 32768, x_size 25000), each with ns a row,
-          bound, multiple and its instance (C, W, R); the arena
+          bound, multiple and its instance (C, W, R); the walk over the
+          row forward's words at bands 1023 (16-row ring), 1024, 2047
+          and 4095 (3-row ring), XW 4096 (20 calls queued behind a
+          sleep), with ns a step, bound, multiple, its find-max alone,
+          its ring and the word rows the walks crossed; the arena
           gather on that chunk shape and at XW 4096 (B=64; 20 calls
           queued behind a sleep, as its launch outlasts it), its bound
           and multiple, the host microseconds of a call (median of 50),
@@ -162,6 +173,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -205,6 +217,7 @@ from gam_ngs_tpu_torch.ops.arena_gather import (  # noqa: E402
     gather_windows_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
+    MAX_BAND as ANTIDIAG_MAX_BAND,
     a_width,
     forward_antidiag,
     forward_antidiag_torch,
@@ -212,6 +225,7 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_host import _prepare  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
+    MAX_BAND,
     forward_row,
     forward_row_torch,
     instance_info,
@@ -220,6 +234,8 @@ from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
 from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
     ANTIDIAG,
     ROW,
+    WIDE_RING_BAND,
+    ring_info,
     walk,
     walk_torch,
 )
@@ -239,8 +255,8 @@ DEV = torch.device("cuda")
 FORWARDS = {"bsw_antidiag": (forward_antidiag, forward_antidiag_torch,
                              ANTIDIAG),
             "bsw_row": (forward_row, forward_row_torch, ROW)}
-KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "bsw_row_warps",
-           "bsw_row_cluster", "arena_gather")
+KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_walk_wide", "bsw_row",
+           "bsw_row_warps", "bsw_row_cluster", "arena_gather")
 # int32 operations the function needs, counted from the recurrence and
 # not from either kernel's scheme, so both forwards share one figure.
 # One band cell of bsw_ref.fill_matrix: its position (1), range test (2),
@@ -254,7 +270,6 @@ KERNELS = ("bsw_antidiag", "bsw_walk", "bsw_row", "bsw_row_warps",
 OPS_PER_CELL = 17
 OPS_PER_WALK_STEP, OPS_PER_CANDIDATE = 31, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-ANTIDIAG_MAX_BAND = 1023  # ops/bsw_antidiag.py: band + 1 <= 1024 lanes
 
 
 def log(msg: str) -> None:
@@ -294,27 +309,37 @@ def timed_once(ms: dict, name: str, fn):
     return out
 
 
-def kernel_vs_plain(name, fargs, fe, lmax, with_edits):
+def kernel_vs_plain(name, fargs, fe, lmax, with_edits, plain_fwd=True):
     """A forward kernel against its plain version on one chunk's inputs
     (fargs = the forward's arguments: a, b, begin_a, end_a, a_len,
-    x_size, force_start, band) and, unless fe is None, the walk over its
-    words against the walk's plain version; both walks read the kernel's
-    forward output.  Returns ({kernel: max|kernel - plain|}, {name: ms
-    of the one call})."""
+    x_size, force_start, band; not plain_fwd: the kernel alone) and,
+    unless fe is None, the walk over its words against the walk's plain
+    version; both walks read the kernel's forward output.  Returns
+    ({kernel: max|kernel - plain|}, {name: ms of the one call})."""
     kern, plain, layout = FORWARDS[name]
     a, b, ba, ea, _al, xs, _fs, band = fargs
     ms: dict = {}
     fk = timed_once(ms, name, lambda: kern(*fargs))
-    fp = timed_once(ms, name + "_plain", lambda: plain(*fargs))
-    errs = {name: max_err(fk, fp)}
+    errs = {}
+    if plain_fwd:
+        fp = timed_once(ms, name + "_plain", lambda: plain(*fargs))
+        errs[name] = max_err(fk, fp)
     if fe is not None:
         wargs = (fk[0], a, b, ba, ea, xs, fe, fk[1], fk[2], band, lmax,
                  with_edits)
         wk = timed_once(ms, "bsw_walk", lambda: walk(*wargs, layout=layout))
         wp = timed_once(ms, "bsw_walk_plain",
                         lambda: walk_torch(*wargs, layout=layout))
-        errs["bsw_walk"] = max_err(wk, wp)
+        errs[walk_name(band, layout)] = max_err(wk, wp)
     return errs, ms
+
+
+def walk_name(band: int, layout: int) -> str:
+    """The kernels line's name of the walk: bsw_walk_wide for the row
+    form's words from band WIDE_RING_BAND on (the 3-row ring), else
+    bsw_walk."""
+    return ("bsw_walk_wide" if layout == ROW and band >= WIDE_RING_BAND
+            else "bsw_walk")
 
 
 def row_name(band: int) -> str:
@@ -475,22 +500,17 @@ def phase_parity(res):
         for fwd in FORWARDS:
             if fwd == "bsw_antidiag" and band > ANTIDIAG_MAX_BAND:
                 continue
-            # the walk stages 16 word rows of 2*band+1 lanes in shared
-            # memory: it takes the row form's words up to band 1023
-            walk_fe = fe if fwd == "bsw_antidiag" or band <= 1023 else None
             for with_edits in (False, True):
-                errs, _ms = kernel_vs_plain(fwd, fargs, walk_fe,
+                errs, _ms = kernel_vs_plain(fwd, fargs, fe,
                                             lmax_of(xw, band), with_edits)
                 note_err(res, f"[parity] {name} {fwd} edits={with_edits}",
                          errs)
-                if walk_fe is None:
-                    break
     # the row forward at the first and last band of each of its
-    # instances, and the walk over its words (up to band 1023)
+    # instances, and the walk over its words (its 3-row ring from band
+    # WIDE_RING_BAND on)
     for band in tp.row_boundary_bands():
         fargs, fe, xw = packed_inputs(tp.boundary_problems(band), band)
-        errs, _ms = kernel_vs_plain("bsw_row", fargs,
-                                    fe if band <= 1023 else None,
+        errs, _ms = kernel_vs_plain("bsw_row", fargs, fe,
                                     lmax_of(xw, band), True)
         errs[row_name(band)] = errs.pop("bsw_row")
         note_err(res, f"[parity] bounds_band{band} bsw_row edits=True", errs)
@@ -1019,6 +1039,61 @@ def wide_band_merges(d, c, blocks, res) -> None:
                  f"B={a_shape[0]} XW={2 * b_shape[1]} edits={edits}", errs)
         log(f"[full] band={band} merge chunk B={a_shape[0]}: one call "
             "each, " + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
+    wide_walk_merges(d, c, blocks, res)
+
+
+def wide_walk_merges(d, c, blocks, res) -> None:
+    """The 5 Mbp merge at band 4095 (the row forward's clusters of eight
+    blocks) through BswEngine(band=4095, kernel="row"), whose device walk
+    runs on its 3-row ring, and through BswEngine(band=4095,
+    traceback="host"), the C++ walk over the same forward's words; each
+    merge's launch counts set to 0 just before it and read just after;
+    the six outputs byte-identical; then the walk kernel against its
+    plain version over the kernel forward's words on the device merge's
+    smallest chunk (the plain forward is left out: the parity phase
+    holds it at band 4095)."""
+    band = MAX_BAND
+    res["launches"]["walk_wide"] = {"bsw_walk_wide": 0}
+    keep = KeepChunkInputs()
+    for tb in ("device", "host"):
+        reset_launches()
+        eng = BswEngine(DEV, band=band, kernel="row", traceback=tb)
+        with keep if tb == "device" else contextlib.nullcontext():
+            wall, m, _lines = engine_merge(c, blocks, f"{d}/band{band}_{tb}",
+                                           eng)
+        launches = BswEngine.kernel_launches()
+        if not launches["bsw_row"] or launches["bsw_antidiag"] \
+                or (launches["bsw_walk"] > 0) != (tb == "device"):
+            raise AssertionError(f"5 Mbp band={band} traceback={tb}: "
+                                 f"launches {launches}")
+        if tb == "device":
+            res["launches"]["walk_wide"]["bsw_walk_wide"] += \
+                launches["bsw_walk"]
+            res["launches"]["row_cluster"]["bsw_row_cluster"] += \
+                launches["bsw_row"]
+        log(f"[full] band={band} kernel=row traceback={tb}: wall "
+            f"{wall:.4f} s, align {m['phases']['align']:.4f} s, "
+            f"aligned_cells {m['counters']['aligned_cells']}, "
+            f"align_dispatches {m['counters']['align_dispatches']}, "
+            f"launches {launches}")
+    if not same_outputs(d, f"band{band}_device", ref=f"band{band}_host"):
+        raise AssertionError(f"5 Mbp band={band}: the device walk's merge "
+                             f"wrote other outputs than the host walk's")
+    rows, slot, _code, warps, shmem = ring_info(band, ROW)
+    log(f"[full] band={band}: six outputs of the device walk ({rows}-row "
+        f"ring of {4 * slot} B slots, {warps} warps and {shmem} B of shared "
+        f"memory a block) byte-identical to the host walk's")
+    (name, a_shape, b_shape), k = min(
+        ((key, k) for key, k in keep.kept.items() if key[0] == "bsw_row"),
+        key=lambda kv: kv[0][1][0])
+    fe, lmax, edits = k["walk"]
+    errs, ms = kernel_vs_plain(name, k["fargs"], fe, lmax, edits,
+                               plain_fwd=False)
+    note_err(res, f"[full] band={band} merge chunk B={a_shape[0]} "
+             f"XW={2 * b_shape[1]} edits={edits} (over the kernel "
+             f"forward's words)", errs)
+    log(f"[full] band={band} merge chunk B={a_shape[0]}: one call each, "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in ms.items()))
 
 
 def payload_merge(d, merge, m_res) -> None:
@@ -1690,7 +1765,58 @@ def phase_timing(res, card):
             f"C, W, R = {row_instance(band)}")
         res[f"timing_row_band{band}_xw{xw}"] = (ms, b_ms, b_by,
                                                 t["bsw_row_plain"])
+    time_wide_walk(res, card, ops_rate)
     time_gather(res, card)
+
+
+def time_wide_walk(res, card, ops_rate) -> None:
+    """The walk over the row forward's words, B=64, XW 4096, at the
+    16-row ring's last band and the 3-row ring's first, 2047 and 4095:
+    device ms of one call (queued_ms: 20 calls queued behind a sleep, as
+    the wrapper's host work is a tenth of the kernel's time) beside one
+    call of its plain version (outputs equal bit for bit), its bound and
+    ns a step (the longest walk's steps), and its find-max alone (lmax
+    0: the kernel stops before the first step), with the ring and the
+    word rows the walks crossed."""
+    xw = 4096
+    for band in (WIDE_RING_BAND - 1, WIDE_RING_BAND, 2047, MAX_BAND):
+        fargs, fe, xw_b = packed_inputs(timing_problems(xw, band), band)
+        if xw_b != xw:
+            raise AssertionError(f"timing problems fell in bucket {xw_b}")
+        a, b, ba, ea, _al, xs, _fs, _band = fargs
+        dirs, lr, dg = forward_row(*fargs)
+        wargs = (dirs, a, b, ba, ea, xs, fe, lr, dg, band,
+                 lmax_of(xw, band), False)
+        fm_args = (*wargs[:10], 0, False)
+        t = {"walk": queued_ms(lambda: walk(*wargs, layout=ROW)),
+             "find_max": queued_ms(lambda: walk(*fm_args, layout=ROW))}
+        got, fm = walk(*wargs, layout=ROW), walk(*fm_args, layout=ROW)
+        want = timed_once(t, "walk_plain",
+                          lambda: walk_torch(*wargs, layout=ROW))
+        name = walk_name(band, ROW)
+        note_err(res, f"[timing] B=64 band={band} XW={xw} walk (row words)",
+                 {name: max(max_err(got, want),
+                            max_err(fm, walk_torch(*fm_args, layout=ROW)))})
+        b_ms, b_by = bound("bsw_walk", fargs, fe, (*got, lr, dg), ops_rate)
+        summary = got[0]
+        steps = int(summary[2].max())
+        # word rows the walks crossed: from the find-max's row down to
+        # the row they ended in
+        live = summary[2] > 0
+        crossed = int(((fm[0][0] >> 4) - (summary[0].clamp(min=0) >> 4)
+                       + 1)[live].sum())
+        rows, slot, _code, warps, shmem = ring_info(band, ROW)
+        ms = t["walk"]
+        log(f"[timing] {card} | B=64 band={band} XW={xw} {name}: {ms:.4f} "
+            f"ms, {ms * 1e6 / steps:.1f} ns/step ({steps} steps), bound "
+            f"{b_ms:.6f} ms ({b_by}), {ms / b_ms:.1f}x it (queued); "
+            f"find-max alone {t['find_max']:.4f} ms; plain "
+            f"{t['walk_plain']:.4f} ms; ring {rows} rows x {4 * slot} B = "
+            f"{4 * rows * slot} B a warp, "
+            f"{warps} warps and {shmem} B a block; {crossed} word rows "
+            f"crossed ({4 * slot * crossed} B)")
+        res[f"timing_walk_band{band}_xw{xw}"] = (ms, b_ms, b_by,
+                                                 t["walk_plain"])
 
 
 def ptxas_lines(build_log: str, kernel: str) -> list[str]:
@@ -1819,18 +1945,27 @@ def kernels_line(res) -> dict:
                                            (None,) * 4)
     c_ms, c_bound, c_by, c_plain = res.get("timing_row_band1023_xw4096",
                                            (None,) * 4)
+    v_ms, v_bound, v_by, v_plain = res.get("timing_walk_band4095_xw4096",
+                                           (None,) * 4)
     tk = {**tk, "arena_gather": g_ms, "arena_gather_plain": g_plain,
           "bsw_row_warps": w_ms, "bsw_row_warps_plain": w_plain,
-          "bsw_row_cluster": c_ms, "bsw_row_cluster_plain": c_plain}
+          "bsw_row_cluster": c_ms, "bsw_row_cluster_plain": c_plain,
+          "bsw_walk_wide": v_ms, "bsw_walk_wide_plain": v_plain}
     bd = {**bd, "arena_gather": (g_bound, "bytes" if g_bound else None),
           "bsw_row_warps": (w_bound, w_by),
-          "bsw_row_cluster": (c_bound, c_by)}
+          "bsw_row_cluster": (c_bound, c_by),
+          "bsw_walk_wide": (v_bound, v_by)}
     kern = []
     for name, src, rep, path in (
             ("bsw_antidiag", "gam_ngs_tpu_torch/csrc/bsw_antidiag.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:542", "antidiag"),
             ("bsw_walk", "gam_ngs_tpu_torch/csrc/bsw_walk.cu",
              "gam_ngs_tpu/ops/bsw_batch.py:383", "antidiag"),
+            # the walk over the row form's words on its 3-row ring (bands
+            # 1024-4095): its launches from the band 4095 merge, its
+            # times at band 4095, XW 4096
+            ("bsw_walk_wide", "gam_ngs_tpu_torch/csrc/bsw_walk.cu",
+             "gam_ngs_tpu/ops/bsw_batch.py:383", "walk_wide"),
             ("bsw_row", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:48", "row"),
             # row_warps_kernel (bands 160-511): its launches from the
@@ -1838,7 +1973,8 @@ def kernels_line(res) -> dict:
             ("bsw_row_warps", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:48", "row_warps"),
             # row_warps_kernel in clusters (bands 768-4095): its launches
-            # from the band 1023 merge, its times at band 1023, XW 4096
+            # from the band 1023 and 4095 merges, its times at band 1023,
+            # XW 4096
             ("bsw_row_cluster", "gam_ngs_tpu_torch/csrc/bsw_row.cu",
              "gam_ngs_tpu/ops/bsw_pallas.py:48", "row_cluster"),
             ("arena_gather", "gam_ngs_tpu_torch/csrc/arena_gather.cu",

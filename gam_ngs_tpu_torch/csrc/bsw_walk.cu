@@ -34,17 +34,32 @@
 // Staging: a walk visits the word rows (2x+y)/16 (layout 0) or x/16
 // (layout 1) in descending order, one row at most a step.  Each warp
 // keeps a ring of kGroups groups of kGroupRows whole word rows in shared
-// memory; a group's rows are contiguous in dirs, so one loop of 4-byte
-// cp.async copies brings it in.  Entering group g the warp starts the
-// copies of group g-kGroups+2, with the a and b code words its rows'
-// cells can read, as one commit group, and waits for the group of g; a
-// row change inside a group only moves a pointer.  The code rings are
-// wide enough that the codes of the rows up to 3 above the walk's (the
-// last 32 steps) stay in place.
+// memory (the Ring).  Entering group g the warp starts the copies of
+// group g-kGroups+2, with the a and b code words its rows' cells can
+// read, as one commit group, and waits for the group of g; a row change
+// inside a group only moves a pointer.  The code rings are wide enough
+// that the codes of the rows up to 3 above the walk's (the last 32
+// steps) stay in place.  Two rings:
+//   NarrowRing, layout 0 and layout 1 below kWideBand: four groups of
+//   four rows (16 rows of band+1 or 2*band+1 words); a group's rows are
+//   contiguous in dirs, so one loop of 4-byte cp.async copies brings it
+//   in, one to two groups (32-128 steps in layout 0) ahead of the walk;
+//   WideRing, layout 1 from kWideBand (band 1024) to 4095, where 16 rows
+//   of 2*band+1 words would not fit past band ~1567: three groups of one
+//   row (the row the walk is in, the row in flight, one spare; 98 KB at
+//   band 4095, so two warps fit the card's 227 KB).  Each diag or up
+//   step takes x one row down the 16 of a word row, so a row lasts at
+//   least 16 steps, the time its successor's copy has to land.  A row is
+//   copied as the 16-byte-aligned span that covers it (rows start at
+//   4*KL*v bytes and KL is odd), with 16-byte cp.async.cg: a quarter of
+//   the copy instructions the serial chain's lanes would otherwise issue.
+//   The span's end chunks carry up to 3 words beside the row (at dirs'
+//   ends, bytes past it in the same 16-byte chunk, so on the same page);
+//   the walk reads none of them.
 //
 // Bound on this card: the walk is one dependent chain per problem, a
-// shared-memory load and ~10 dependent int32 operations a step; the copies
-// run one to two groups (32-128 steps in layout 0) ahead of it.
+// shared-memory load and ~10 dependent int32 operations a step; the
+// copies run ahead of it.
 
 #include <climits>
 #include <cstdint>
@@ -56,14 +71,34 @@ constexpr int kDiag = 0, kUp = 1, kLeft = 2;
 // editops codes
 constexpr uint8_t kGapA = 0, kGapB = 1, kMatch = 2, kMismatch = 3;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kGroupRows = 4;  // word rows fetched together
-constexpr int kGroups = 4;     // groups staged per warp
-constexpr int kRows = kGroupRows * kGroups;  // a power of 2
 constexpr int kMaxWarps = 4;
 
+// The word-row rings (see the note above): kGroups groups of kGroupRows
+// rows, in slots of slot_words(KL) words; kSpan16 copies a row's 16-byte
+// chunks; kBudget is the shared memory a block may take.
+struct NarrowRing {
+  static constexpr int kGroupRows = 4, kGroups = 4;
+  static constexpr bool kSpan16 = false;
+  static constexpr size_t kBudget = 200 * 1024;
+};
+struct WideRing {
+  static constexpr int kGroupRows = 1, kGroups = 3;
+  static constexpr bool kSpan16 = true;
+  static constexpr size_t kBudget = 232448;  // 227 KB
+};
+constexpr int kWideBand = 1024;  // layout 1's first band on WideRing
+
+#ifdef __CUDACC__
+// cp.async (tests/cuda_emu/cuda_runtime.h defines the host's stand-ins)
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -75,18 +110,37 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+#endif
 
 // One warp's staging state: the word-row ring and the two code-word
 // rings, and how far down the code words have been fetched.
-template <int LAYOUT>
+template <int LAYOUT, class Ring>
 struct Stage {
-  uint32_t* rows;  // kRows x KL words
+  static constexpr int kRows = Ring::kGroupRows * Ring::kGroups;
+  uint32_t* rows;  // kRows slots of SW words
   uint32_t* ca;    // cmask+1 words of a codes, word q at q & cmask
   uint32_t* cb;    // the same for b
   const int* dp;   // this problem's direction words
   const uint32_t* ap;
   const uint32_t* bp;
-  int KL, NP, cmask, nwa, nwb, band, a_lo, b_lo, tid;
+  int KL, SW, NP, cmask, nwa, nwb, band, a_lo, b_lo, tid;
+
+  // words a row's slot takes: the row, or the 16-byte chunks that cover
+  // it at any of the 4 alignment phases
+  __host__ __device__ static int slot_words(int KL) {
+    return Ring::kSpan16 ? ((KL + 6) >> 2) * 4 : KL;
+  }
+  // the 4-byte phase of word row v's start in its first 16-byte chunk
+  __device__ int phase(int v) const {
+    return (int)((reinterpret_cast<uintptr_t>(dp + (size_t)v * KL) >> 2) &
+                 3);
+  }
+  // word row v's words in the ring (v >= 0)
+  __device__ const uint32_t* row_ptr(int v) const {
+    const uint32_t* p = rows + (int)((unsigned)v % kRows) * SW;
+    if constexpr (Ring::kSpan16) p += phase(v);
+    return p;
+  }
 
   // lowest a / b code words the cells of word row v can read
   __device__ int a_lo_word(int v) const {
@@ -108,12 +162,19 @@ struct Stage {
   // copies for the word rows of group g (none below row 0 or from row
   // NP on), as one commit group
   __device__ void fetch(int g) {
-    const int v = g * kGroupRows;
+    const int v = g * Ring::kGroupRows;
     if (v >= 0) {
-      uint32_t* dst = rows + (v & (kRows - 1)) * KL;
+      uint32_t* dst = rows + (int)((unsigned)v % kRows) * SW;
       const int* src = dp + (size_t)v * KL;
-      const int n = (min(v + kGroupRows, NP) - v) * KL;
-      for (int q = tid; q < n; q += 32) cp_async4(dst + q, src + q);
+      if constexpr (Ring::kSpan16) {  // one row, 16 bytes a copy
+        const int ph = phase(v);
+        const uint4* s16 = reinterpret_cast<const uint4*>(src - ph);
+        const int n = (ph + KL + 3) >> 2;
+        for (int q = tid; q < n; q += 32) cp_async16(dst + 4 * q, s16 + q);
+      } else {
+        const int n = (min(v + Ring::kGroupRows, NP) - v) * KL;
+        for (int q = tid; q < n; q += 32) cp_async4(dst + q, src + q);
+      }
       const int al = a_lo_word(v), bl = b_lo_word(v);
       if (al < a_lo) {
         fetch_codes(ca, ap, nwa, al, a_lo, 0xffffffffu);
@@ -142,8 +203,8 @@ struct Tally {
 
 // Settle the n (1..32) steps s0 .. s0+n-1 that lanes 0 .. n-1 recorded:
 // cell (rx, ry), direction rd.
-template <int LAYOUT>
-__device__ __forceinline__ void settle(const Stage<LAYOUT>& sg, Tally& tl,
+template <class S>
+__device__ __forceinline__ void settle(const S& sg, Tally& tl,
                                        int n, int rx, int ry, int rd,
                                        uint8_t* ed, int s0) {
   const bool mine = sg.tid < n;
@@ -172,7 +233,7 @@ __device__ __forceinline__ void settle(const Stage<LAYOUT>& sg, Tally& tl,
   }
 }
 
-template <int LAYOUT>
+template <int LAYOUT, class Ring>
 __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
     const int* __restrict__ dirs, const uint8_t* __restrict__ a_pk,
     const uint8_t* __restrict__ b_pk, const int* __restrict__ begin_a,
@@ -181,7 +242,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
     const int* __restrict__ diag, int B, int aw, int xw, int band, int NP,
     int lmax, int force_max_gap, int cmask, int* __restrict__ summary,
     uint8_t* __restrict__ edits) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t smem[];
   const int tid = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + w;
   if (b >= B) return;
@@ -238,8 +299,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
   }
 
   // 2. the walk
-  Stage<LAYOUT> sg;
-  const int rows_words = kRows * KL;
+  using S = Stage<LAYOUT, Ring>;
+  constexpr int GR = Ring::kGroupRows, NG = Ring::kGroups;
+  S sg;
+  sg.SW = S::slot_words(KL);
+  const int rows_words = S::kRows * sg.SW;
   sg.rows = smem + (size_t)w * (rows_words + 2 * (cmask + 1));
   sg.ca = sg.rows + rows_words;
   sg.cb = sg.ca + cmask + 1;
@@ -266,23 +330,22 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
     // every code word up to the highest the start row can read
     sg.a_lo = (LAYOUT ? 16 * cw + 15 + 2 * band : 8 * cw + 15 + band) / 8 + 1;
     sg.b_lo = (LAYOUT ? 16 * cw + 15 : 8 * cw + 7) / 8 + 1;
-    for (int g = cw / kGroupRows; g > cw / kGroupRows - kGroups + 1; --g)
-      sg.fetch(g);
-    cp_async_wait<kGroups - 2>();
+    for (int g = cw / GR; g > cw / GR - NG + 1; --g) sg.fetch(g);
+    cp_async_wait<NG - 2>();
     __syncwarp();
-    row = sg.rows + (cw & (kRows - 1)) * KL;
+    row = sg.row_ptr(cw);
   }
   while (active) {
     const int t = LAYOUT ? x : 2 * x + y;
     if (t < 16 * cw) {  // one row down: row cw-1
       --cw;
-      if (cw % kGroupRows == kGroupRows - 1) {  // and into group cw/4
+      if (cw % GR == GR - 1) {  // and into group cw/GR
         __syncwarp();  // every lane is done with the slots refilled next
-        sg.fetch(cw / kGroupRows - kGroups + 2);
-        cp_async_wait<kGroups - 2>();
+        sg.fetch(cw / GR - NG + 2);
+        cp_async_wait<NG - 2>();
         __syncwarp();
       }
-      row = sg.rows + (cw & (kRows - 1)) * KL;
+      row = sg.row_ptr(cw);
     }
     const int d = (row[LAYOUT ? y : y >> 1] >> ((t & 15) * 2)) & 3;
     if (tid == (s & 31)) {
@@ -307,6 +370,47 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
   }
 }
 
+// The ring's shape at a band and the block that holds it: words a row
+// slot, code words a ring (a power of 2 that spans the codes the rows
+// of one ring and the 3 rows above it can read: layout 1's a words are
+// 2 a row plus the (2*band+15)/8 a row's cells reach), and as many warps
+// a block as the ring's budget holds, at most kMaxWarps (0: none fits).
+struct Plan {
+  int rows, slot_words, code_words, warps;
+  size_t shmem;
+};
+
+template <int LAYOUT, class Ring>
+Plan plan(int band) {
+  using S = Stage<LAYOUT, Ring>;
+  Plan p;
+  p.rows = S::kRows;
+  p.slot_words = S::slot_words(LAYOUT ? 2 * band + 1 : band + 1);
+  p.code_words = 1;
+  while (p.code_words < 2 * (S::kRows + 4) + (2 * band + 15) / 8 + 4)
+    p.code_words *= 2;
+  const size_t per_warp = (size_t)(p.rows * p.slot_words + 2 * p.code_words)
+                          * 4;
+  const size_t fit = Ring::kBudget / per_warp;
+  p.warps = (int)(fit < kMaxWarps ? fit : kMaxWarps);
+  p.shmem = per_warp * p.warps;
+  return p;
+}
+
+template <int L, class R>
+struct Ring_ {
+  static constexpr int kLayout = L;
+  using Ring = R;
+};
+
+// f(Ring_<layout, the ring the launcher takes at this band>())
+template <class F>
+int with_ring(int layout, int band, F&& f) {
+  if (layout == 0) return f(Ring_<0, NarrowRing>());
+  if (band < kWideBand) return f(Ring_<1, NarrowRing>());
+  return f(Ring_<1, WideRing>());
+}
+
 }  // namespace
 
 extern "C" int bsw_walk(const void* dirs, const void* a_pk, const void* b_pk,
@@ -316,28 +420,37 @@ extern "C" int bsw_walk(const void* dirs, const void* a_pk, const void* b_pk,
                         int xw, int band, int NP, int lmax, int force_max_gap,
                         int layout, void* summary, void* edits,
                         void* stream) {
-  const int KL = layout ? 2 * band + 1 : band + 1;
-  // code words the rows of one ring and the 3 rows above it span (layout
-  // 1's a words: 2 a row, plus the (2*band+15)/8 a row's cells reach)
-  int cwords = 1;
-  while (cwords < 2 * (kRows + 4) + (2 * band + 15) / 8 + 4) cwords *= 2;
-  const size_t per_warp = (size_t)(kRows * KL + 2 * cwords) * 4;
-  const size_t budget = 200 * 1024;
-  if (per_warp > budget) return (int)cudaErrorInvalidValue;
-  const int warps = (int)(budget / per_warp < kMaxWarps ? budget / per_warp
-                                                        : kMaxWarps);
-  const size_t shmem = per_warp * warps;
-  auto kernel = layout ? walk_kernel<1> : walk_kernel<0>;
-  if (shmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<(B + warps - 1) / warps, 32 * warps, shmem, (cudaStream_t)stream>>>(
-      (const int*)dirs, (const uint8_t*)a_pk, (const uint8_t*)b_pk,
-      (const int*)begin_a, (const int*)end_a, (const int*)x_size,
-      (const int*)force_end, (const int*)last_row, (const int*)diag, B, aw,
-      xw, band, NP, lmax, force_max_gap, cwords - 1, (int*)summary,
-      (uint8_t*)edits);
-  return (int)cudaGetLastError();
+  return with_ring(layout, band, [&](auto r) {
+    using R = decltype(r);
+    const Plan p = plan<R::kLayout, typename R::Ring>(band);
+    if (p.warps == 0) return (int)cudaErrorInvalidValue;
+    auto kernel = walk_kernel<R::kLayout, typename R::Ring>;
+    if (p.shmem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.shmem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int grid = (B + p.warps - 1) / p.warps;
+    kernel<<<grid, 32 * p.warps, p.shmem, (cudaStream_t)stream>>>(
+        (const int*)dirs, (const uint8_t*)a_pk, (const uint8_t*)b_pk,
+        (const int*)begin_a, (const int*)end_a, (const int*)x_size,
+        (const int*)force_end, (const int*)last_row, (const int*)diag, B,
+        aw, xw, band, NP, lmax, force_max_gap, p.code_words - 1,
+        (int*)summary, (uint8_t*)edits);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The launcher's ring at (band, layout): info = {rows, words a row slot,
+// code words, warps a block, shared memory bytes a block};
+// cudaErrorInvalidValue where no warp's ring fits a block.
+extern "C" int bsw_walk_ring(int band, int layout, int* info) {
+  return with_ring(layout, band, [&](auto r) {
+    using R = decltype(r);
+    const Plan p = plan<R::kLayout, typename R::Ring>(band);
+    const int out[5] = {p.rows, p.slot_words, p.code_words, p.warps,
+                        (int)p.shmem};
+    for (int k = 0; k < 5; ++k) info[k] = out[k];
+    return p.warps ? 0 : (int)cudaErrorInvalidValue;
+  });
 }

@@ -31,6 +31,7 @@ import torch
 from .bsw_ref import FORCE_MAXGAP_LEN, GAP, SCORING_MATRIX
 
 NEG = -(1 << 29)  # below every reachable cell score
+MAX_BAND = 1023  # the kernel's band + 1 <= 1024 lanes
 DIR_DIAG, DIR_UP, DIR_LEFT = 0, 1, 2
 # bsw_ref.SCORING_MATRIX as the kernels use it (uniform over A, T, C, G):
 # match, mismatch, N against N, N against any other code
@@ -247,8 +248,9 @@ def forward_antidiag(a_pk, b_pk, begin_a, end_a, a_len, x_size,
     B = a_pk.shape[0]
     xw, aw = 2 * b_pk.shape[1], 2 * a_pk.shape[1]
     K, T, NP, _ = antidiag_dims(xw, band)
-    if not 1 <= K <= 1024:
-        raise ValueError(f"band {band}: the kernel takes band + 1 <= 1024")
+    if not 0 <= band <= MAX_BAND:
+        raise ValueError(f"band {band}: the kernel takes band + 1 <= "
+                         f"{MAX_BAND + 1}")
     _check("a_pk", a_pk, torch.uint8, (B, a_width(xw, band) // 2), dev)
     _check("b_pk", b_pk, torch.uint8, (B, xw // 2), dev)
     for name, v in (("begin_a", begin_a), ("end_a", end_a),

@@ -12,6 +12,12 @@ found) plus, when asked, the (B, lmax) uint8 edit codes in walk order
 (zero past each walk's end; the wrapper zero-fills them).  Both stop
 where every walk has left the band or the sequences; the steps the JAX
 scan runs after that change nothing.
+
+The kernel takes every band its layout's forward takes: ANTIDIAG up to
+bsw_antidiag.MAX_BAND, ROW up to bsw_row.MAX_BAND.  It stages each
+warp's word rows in a ring in shared memory: 16 rows, and for ROW from
+band WIDE_RING_BAND on, where 16 rows of 2*band+1 words do not fit, 3
+rows.
 """
 
 from __future__ import annotations
@@ -20,11 +26,21 @@ import ctypes
 
 import torch
 
-from .bsw_antidiag import DIR_DIAG, DIR_LEFT, DIR_UP, _check, unpack4
+from .bsw_antidiag import (
+    DIR_DIAG,
+    DIR_LEFT,
+    DIR_UP,
+    MAX_BAND as ANTIDIAG_MAX_BAND,
+    _check,
+    unpack4,
+)
 from .bsw_ref import FORCE_MAXGAP_LEN
+from .bsw_row import MAX_BAND
 from .editops import GAP_A, GAP_B, MATCH, MISMATCH
 
 ANTIDIAG, ROW = 0, 1  # direction-word layouts
+# csrc/bsw_walk.cu's kWideBand: ROW's first band on the 3-row ring
+WIDE_RING_BAND = 1024
 
 launches = 0  # kernel launches by walk (CPU runs not counted)
 
@@ -143,6 +159,23 @@ def _kernel():
     return _fn
 
 
+def ring_info(band: int, layout: int) -> tuple[int, int, int, int, int]:
+    """(word rows, words a row slot, code words, warps a block, shared
+    memory bytes a block) of the ring the CUDA launcher takes at `band`
+    and `layout` (csrc/bsw_walk.cu's plan); builds the library."""
+    from .._build import library
+
+    fn = library().bsw_walk_ring
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 5)()
+    err = fn(band, layout, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"bsw_walk_ring({band}, {layout}): CUDA error "
+                           f"{err}")
+    return tuple(info)
+
+
 def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
          diag, band: int, lmax: int, with_edits: bool,
          layout: int = ANTIDIAG):
@@ -157,6 +190,13 @@ def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
                           layout)
     if dirs.device.type != "cuda":
         raise ValueError(f"unsupported device {dirs.device}")
+    if layout == ROW and not 0 <= band <= MAX_BAND:
+        raise ValueError(f"band {band}: the walk over row-form words takes "
+                         f"band <= {MAX_BAND} (bsw_row.MAX_BAND)")
+    if layout == ANTIDIAG and not 0 <= band <= ANTIDIAG_MAX_BAND:
+        raise ValueError(f"band {band}: the walk over anti-diagonal words "
+                         f"takes band + 1 <= {ANTIDIAG_MAX_BAND + 1}, as "
+                         f"forward_antidiag does")
     dev = dirs.device
     B, NP, K = dirs.shape
     aw, xw, YS = 2 * a_pk.shape[1], 2 * b_pk.shape[1], 2 * band + 1

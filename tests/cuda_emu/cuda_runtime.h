@@ -1,5 +1,6 @@
-// A CPU stand-in for the CUDA runtime, for tests/test_torch_row_emulated.py
-// and tests/test_torch_arena.py: it lets g++ compile a kernel source of
+// A CPU stand-in for the CUDA runtime, for tests/test_torch_row_emulated.py,
+// tests/test_torch_walk_emulated.py and tests/test_torch_arena.py: it lets
+// g++ compile a kernel source of
 // gam_ngs_tpu_torch/csrc and run it on the host.  A launch runs the grid's
 // blocks one after another (a dim3 grid in x, then y, then z order); a
 // block's threads are std::threads, and each warp's shuffles, votes,
@@ -14,12 +15,14 @@
 // address of it to the same place in another rank's, and cluster_arrive /
 // cluster_wait are the halves of one barrier over all the cluster's
 // threads (the CUDA source defines these four helpers itself, in PTX,
-// only under nvcc).
+// only under nvcc).  cp.async copies here at once: a commit and a wait
+// have nothing left to do, so a missing or too short wait cannot show.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <memory>
 #include <optional>
 #include <thread>
@@ -49,6 +52,11 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
@@ -202,6 +210,19 @@ template <class T>
 T __shfl_sync(unsigned, T v, int src) {
   return (T)emu::exchange((long long)v, src & 31);
 }
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int mask) {
+  return (T)emu::exchange((long long)v, (int)(threadIdx.x & 31) ^ mask);
+}
+inline unsigned __ballot_sync(unsigned, bool p) {
+  const long long* buf = emu::post(p);
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= buf[i] ? 1u << i : 0u;
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline bool __any_sync(unsigned, bool p) {
   const long long* buf = emu::post(p);
   bool r = false;
@@ -232,3 +253,13 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xFF) << (8 * n);
   return r;
 }
+// cp.async: the copy at once; commit and wait have nothing to do
+inline void cp_async4(void* smem, const void* gmem) {
+  std::memcpy(smem, gmem, 4);
+}
+inline void cp_async16(void* smem, const void* gmem) {
+  std::memcpy(smem, gmem, 16);
+}
+inline void cp_async_commit() {}
+template <int N>
+void cp_async_wait() {}

@@ -23,12 +23,17 @@ from gam_ngs_tpu_torch.ops.arena_gather import (
     gather_windows_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_antidiag import (
+    MAX_BAND as ANTIDIAG_MAX_BAND,
     a_width,
     forward_antidiag,
     forward_antidiag_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
-from gam_ngs_tpu_torch.ops.bsw_row import forward_row, forward_row_torch
+from gam_ngs_tpu_torch.ops.bsw_row import (
+    MAX_BAND,
+    forward_row,
+    forward_row_torch,
+)
 from gam_ngs_tpu_torch.ops.bsw_walk import ROW, walk, walk_torch
 
 pytestmark = pytest.mark.cuda
@@ -63,26 +68,27 @@ PROBLEM_SETS = {
 # the first and last band of each instance of the row forward, one warp
 # (up to band 159), several warps in a block (160-767) or a cluster of
 # blocks (768-4095) (ragged and soak problems, rows past the exact ones
-# included): both forwards and their walks up to band 1023, the row
-# forward alone past it
+# included): the row forward and its walk at every band, the
+# anti-diagonal forward and its walk up to band 1023
 BOUNDS_SETS = {f"bounds_band{band}": (band, lambda band=band:
                                       tp.boundary_problems(band))
                for band in tp.row_boundary_bands()}
-PROBLEM_SETS |= {k: v for k, v in BOUNDS_SETS.items() if v[0] <= 1023}
+PROBLEM_SETS |= {k: v for k, v in BOUNDS_SETS.items()
+                 if v[0] <= ANTIDIAG_MAX_BAND}
 # the anti-diagonal forward's four warps per problem; the row forward's
 # sixteen warps of three lanes
 WIDE_SETS = {
     "soak8_band700": (700, lambda: tp.soak_problems(8, seed=3, max_len=600)),
 }
 # past the anti-diagonal forward's band 1023: the row forward's clusters
-# of two and eight blocks (the walk stages 16 word rows of 2*band+1 lanes
-# and takes the row form's words up to band 1023)
+# of two and eight blocks, and the walk over their words on its 3-row
+# ring (from band 1024)
 ROW_ONLY_SETS = {
     "soak4_band2000": (2000, lambda: tp.soak_problems(4, seed=9,
                                                       max_len=400)),
     "soak4_band4000": (4000, lambda: tp.soak_problems(4, seed=4,
                                                       max_len=300)),
-} | {k: v for k, v in BOUNDS_SETS.items() if v[0] > 1023}
+} | {k: v for k, v in BOUNDS_SETS.items() if v[0] > ANTIDIAG_MAX_BAND}
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEM_SETS | WIDE_SETS))
@@ -120,10 +126,6 @@ def test_row_kernel_and_row_walk_match_plain(dev, name):
     plain = forward_row_torch(a, b, ba, ea, al, xs, fs, band)
     for k, p in zip(fwd, plain):
         assert torch.equal(k, p)
-    if name in ROW_ONLY_SETS:
-        torch.cuda.synchronize()
-        assert bsw_row.launches == n0[0] + 1
-        return
     dirs, last_row, diag = fwd
     lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
     for edits in (False, True):
@@ -204,17 +206,24 @@ def test_row_wrapper_raises_on_mixed_devices(dev):
 
 
 @pytest.mark.parametrize("band,kw", [(700, {"kernel": "row"}),
-                                     (2000, {"traceback": "host"})])
+                                     (2000, {"traceback": "host"}),
+                                     (0, {"kernel": "row"}),
+                                     (2000, {"kernel": "row"}),
+                                     (MAX_BAND, {"kernel": "row"})])
 def test_wide_band_row_engine_matches_bsw_align(dev, band, kw):
-    """The row forward's wide instances inside the engine: band 700 with
-    the device walk, band 2000 with the host walk."""
+    """The row forward's instances inside the engine: band 0, 700, 2000
+    and 4095 with the device walk (its 3-row ring from band 1024 on),
+    band 2000 with the host walk."""
     problems = tp.soak_problems(6, seed=3, max_len=1600 if band == 700
                                 else 400)
-    n0 = bsw_row.launches
-    got = BswEngine(dev, band=band, **kw).align_many(problems)
+    n0 = (bsw_row.launches, bsw_walk.launches)
+    eng = BswEngine(dev, band=band, **kw)
+    got = eng.align_many(problems)
     for k, (g, w) in enumerate(zip(got, tp.oracle(problems, band))):
         assert tp.same_alignment(g, w), k
-    assert bsw_row.launches > n0
+    torch.cuda.synchronize()
+    assert bsw_row.launches > n0[0]
+    assert (bsw_walk.launches > n0[1]) == (eng.traceback == "device")
 
 
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
@@ -226,14 +235,24 @@ def test_engine_matches_bsw_align(dev, fetch):
 
 
 def test_wrapper_checks_inputs(dev):
-    (a, b, ba, ea, al, xs, fs, _fe), _xw = _inputs(tp.soak_problems(4), 150,
-                                                  dev)
+    (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(tp.soak_problems(4), 150,
+                                                dev)
     with pytest.raises(ValueError, match="begin_a"):
         forward_antidiag(a, b, ba.long(), ea, al, xs, fs, 150)
     with pytest.raises(ValueError, match="a_pk"):
         forward_antidiag(a[:, :-1], b, ba, ea, al, xs, fs, 150)
     with pytest.raises(ValueError, match="band"):
         forward_antidiag(a, b, ba, ea, al, xs, fs, 1024)
+    # a band past each walk layout's bound raises before any launch
+    dirs, last_row, diag = forward_antidiag(a, b, ba, ea, al, xs, fs, 150)
+    lmax = -(-(2 * xw + 300 + 8) // 4) * 4
+    n0 = bsw_walk.launches
+    for band, layout in ((ANTIDIAG_MAX_BAND + 1, 0), (MAX_BAND + 1, ROW),
+                         (-1, ROW)):
+        with pytest.raises(ValueError, match=f"band {band}:"):
+            walk(dirs, a, b, ba, ea, xs, fe, last_row, diag, band, lmax,
+                 False, layout=layout)
+    assert bsw_walk.launches == n0
 
 
 @pytest.mark.parametrize("corpus", ["junction", "fork_bubble"])

@@ -1,10 +1,13 @@
 """Time this tree's anti-diagonal forward and walk kernels (or, with
---row, its row-form forward; with --gather, its arena window gather)
-against another version's, on one CUDA GPU, in turns.
+--row, its row-form forward; with --walk, its walk over both forwards'
+words; with --gather, its arena window gather) against another
+version's, on one CUDA GPU, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--row] [--reps 5] [--out FILE]
+    python3 tools/kernel_ab.py --walk DIR [--bands 1023] [--out FILE]
     python3 tools/kernel_ab.py --gather DIR [--out FILE]
     python3 tools/kernel_ab.py --floor [--out FILE]
+    python3 tools/kernel_ab.py --sass DIR
 
 DIR holds the other version's bsw_antidiag.cu and bsw_walk.cu (for
 example `git show <commit>:gam_ngs_tpu_torch/csrc/bsw_antidiag.cu` into
@@ -28,6 +31,22 @@ and 32768 (x_size 25000), and at bands 300 and 511 (--bands) in XW
 4096, timed base, this, this, base, their outputs held equal bit for
 bit; each time with its ns a row (the longest problem's rows), bound
 and multiple, and this tree's instance (C, W, R) at the band.
+
+--walk DIR (instead of --base): DIR holds the other version's
+bsw_walk.cu (same C entry point).  Both walks run, without edit codes,
+over this tree's forward words of B=64 problems in windows XW 4096: the
+anti-diagonal forward's at band 150 and the row forward's at band 150
+and at each band of --bands (default 1023), timed base, this, this,
+base, their summaries held equal; each time with its ns a step (the
+longest walk's steps), bound and multiple, and this tree's ring (rows,
+warps a block, shared memory a block).  A band the other version's
+launcher refuses is timed for this tree's alone.
+
+--sass DIR: for each CUDA source in DIR and this tree's source of the
+same name, each kernel's SASS (nvcc -cubin with _build's flags, then
+cuobjdump -sass): its instruction count and a hash of its instructions
+without addresses and encodings, so that a kernel whose device code did
+not change shows the same count and hash in both, whatever its name.
 
 --floor: the floor of a row of the row forward's cluster instances,
 tools/cluster_floor.cu: B=64 problems of 4096 rows that do only the
@@ -233,6 +252,82 @@ def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
     return res
 
 
+def walk_ab(base_dir: str, reps: int, card: str, ops_rate: float,
+            bands: list[int]) -> dict:
+    """This tree's bsw_walk against DIR's, in turns, over this tree's
+    forward words."""
+    from gam_ngs_tpu_torch.ops import bsw_walk
+    from gam_ngs_tpu_torch.ops.bsw_antidiag import forward_antidiag
+    from gam_ngs_tpu_torch.ops.bsw_row import forward_row
+
+    this = bsw_walk._kernel()
+    xw = 4096
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, log = build([os.path.join(base_dir, "bsw_walk.cu")], tmp)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[base] {line.strip()}")
+        base = lib.bsw_walk
+        base.argtypes, base.restype = this.argtypes, this.restype
+        res = {"card": card, "shapes": {}}
+        for layout, band in ((bsw_walk.ANTIDIAG, BAND), (bsw_walk.ROW, BAND),
+                             *((bsw_walk.ROW, b) for b in bands)):
+            sh = Shape(problems(xw, band=band), band)
+            fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, band)
+            fwd = forward_row if layout == bsw_walk.ROW else forward_antidiag
+            dirs, lr, dg = fwd(*fargs)
+            lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
+
+            def run(fn):
+                summary = torch.empty((13, sh.B), dtype=torch.int32,
+                                      device=DEV)
+                err = fn(*(v.data_ptr() for v in (dirs, sh.a, sh.b, sh.ba,
+                                                  sh.ea, sh.xs, sh.fe, lr,
+                                                  dg)),
+                         sh.B, 2 * sh.a.shape[1], xw, band, dirs.shape[1],
+                         lmax, FORCE_MAXGAP_LEN, layout, summary.data_ptr(),
+                         None, sh.stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+                return summary
+
+            fns = {"this": this}
+            want = run(this)
+            try:
+                got = run(base)
+                fns["base"] = base
+            except RuntimeError as e:
+                print(f"[ab] {card} | layout={layout} band={band}: the base "
+                      f"walk's launcher refuses it ({e})", flush=True)
+            torch.cuda.synchronize()
+            if "base" in fns and not torch.equal(got, want):
+                raise AssertionError(f"layout {layout} band {band}: the "
+                                     f"walks disagree")
+            b_ms, b_by = chip_smoke.bound("bsw_walk", fargs, sh.fe,
+                                          (want, None, lr, dg), ops_rate)
+            n = int(want[2].max())
+            rows, _slot, _code, warps, shmem = bsw_walk.ring_info(band,
+                                                                  layout)
+            ms: dict = {}
+            for turn in ("base", "this", "this", "base"):
+                if turn in fns:
+                    ms.setdefault(turn, []).append(
+                        launch_ms(lambda: run(fns[turn]), reps))
+            for turn, v in ms.items():
+                print(f"[ab] {card} | B={sh.B} layout={layout} band={band} "
+                      f"XW={xw} bsw_walk_{turn}: ms "
+                      f"{', '.join(f'{t:.4f}' for t in v)}; "
+                      f"{statistics.mean(v) * 1e6 / n:.1f} ns/step over {n} "
+                      f"steps; bound {b_ms:.6f} ms ({b_by}), "
+                      f"{statistics.mean(v) / b_ms:.1f}x it; this: {rows}-row "
+                      f"ring, {warps} warps and {shmem} B a block",
+                      flush=True)
+            res["shapes"][f"layout{layout}_band{band}_xw{xw}"] = {
+                "ms": ms, "steps": n, "bound_ms": b_ms, "bound_by": b_by,
+                "ring": [rows, warps, shmem]}
+    return res
+
+
 def gather_ab(base_dir: str, card: str) -> dict:
     """This tree's arena_gather against DIR's, in turns."""
     import importlib.util
@@ -363,6 +458,51 @@ def floor_ab(card: str, reps: int, B: int = 64, rows: int = 4096) -> dict:
     return res
 
 
+def sass_ab(base_dir: str) -> dict:
+    """Each kernel's SASS instruction count and hash, this tree's and
+    DIR's, for every source DIR holds."""
+    import glob
+    import hashlib
+
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(glob.glob(os.path.join(base_dir, "*.cu"))):
+            name = os.path.basename(src)
+            for tree, path in (("this", os.path.join(_build.CSRC, name)),
+                               ("base", src)):
+                cubin = os.path.join(tmp, f"{tree}_{name}.cubin")
+                subprocess.run([nvcc, *flags, "-cubin", path, "-o", cubin],
+                               check=True)
+                text = subprocess.run([cuobjdump, "-sass", cubin],
+                                      capture_output=True, text=True,
+                                      check=True).stdout
+                funcs: dict[str, list[str]] = {}
+                fn = None
+                for line in text.splitlines():
+                    head = line.split("Function : ")
+                    if len(head) == 2:
+                        fn = head[1].strip()
+                        funcs[fn] = []
+                    elif fn is not None and "/*" in line:
+                        # the instruction, without its address and its
+                        # encoding comments
+                        ins = line.split("/*")[1].split("*/", 1)[1]
+                        ins = ins.split("/*")[0].strip()
+                        if ins:
+                            funcs[fn].append(ins)
+                for fn, ins in funcs.items():
+                    h = hashlib.sha256("\n".join(ins).encode()).hexdigest()
+                    res.setdefault(name, {}).setdefault(tree, {})[fn] = (
+                        len(ins), h[:16])
+                    print(f"[sass] {name} {tree}: {len(ins)} instructions, "
+                          f"hash {h[:16]}: {fn}", flush=True)
+    return res
+
+
 def launch_ms(fn, reps: int) -> float:
     fn()  # warm-up
     times = []
@@ -382,17 +522,24 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--base", help="DIR of bsw_antidiag.cu, bsw_walk.cu "
                       "(or bsw_row.cu with --row)")
+    mode.add_argument("--walk", help="DIR of bsw_walk.cu")
     mode.add_argument("--gather", help="DIR of arena_gather.cu (and, "
                       "optionally, arena_gather.py)")
+    mode.add_argument("--sass", help="DIR of CUDA sources whose kernels' "
+                      "SASS is compared with this tree's")
     mode.add_argument("--floor", action="store_true",
                       help="time tools/cluster_floor.cu's exchange loop")
     ap.add_argument("--row", action="store_true",
                     help="time the row-form forward (DIR/bsw_row.cu)")
-    ap.add_argument("--bands", default="300,511",
-                    help="--row: the bands timed at XW 4096 besides 150")
+    ap.add_argument("--bands", default=None,
+                    help="the bands timed at XW 4096 besides 150 (--row: "
+                    "default 300,511; --walk: default 1023)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    if args.sass:
+        print(json.dumps(sass_ab(args.sass)))
+        return 0
     if not torch.cuda.is_available():
         print("kernel_ab: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -417,6 +564,16 @@ def main() -> int:
         print(line)
         return 0
     ops_rate = chip_smoke.int32_ops_per_s()
+    if args.walk:
+        _build.library()
+        line = json.dumps(walk_ab(args.walk, args.reps, card, ops_rate,
+                                  [int(b) for b in (args.bands
+                                                    or "1023").split(",")]))
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(line + "\n")
+        print(line)
+        return 0
     if args.row:
         _build.library()
         for line in _build.build_log.splitlines():
@@ -424,7 +581,8 @@ def main() -> int:
                     or "spill" in line:
                 print(f"[this] {line.strip()}")
         line = json.dumps(row_ab(args.base, args.reps, card, ops_rate,
-                                 [int(b) for b in args.bands.split(",")]))
+                                 [int(b) for b in (args.bands
+                                                   or "300,511").split(",")]))
         if args.out:
             with open(args.out, "w") as fh:
                 fh.write(line + "\n")
