@@ -131,11 +131,10 @@ def run_merge(opts: MergeOptions, log=print):
             # the process's first device round trips (context creation,
             # first copy) land here instead of in whichever phase came
             # first
-            t0 = time.time()
-            for dev in dict.fromkeys(devices):
-                torch.zeros((), device=dev).item()
-                torch.cuda.synchronize(dev)
-            metrics.phases["device_warmup"] = time.time() - t0
+            with metrics.phase("device_warmup"):
+                for dev in dict.fromkeys(devices):
+                    torch.zeros((), device=dev).item()
+                    torch.cuda.synchronize(dev)
 
     pid, nproc = proc_info()
     is_writer = pid == 0
@@ -162,24 +161,23 @@ def run_merge(opts: MergeOptions, log=print):
     log(f"[main] Loaded blocks = {len(blocks)}")
 
     log("[main] Loading BAMs data")
-    t_phase = time.time()
-    master_bam = _open_with_stats(
-        opts.master_bam_file, opts.master_bam_file + ".isize",
-        "Master PE-alignments", log)
-    master_mp = None
-    if opts.master_mp_bam_file:
-        master_mp = _open_with_stats(
-            opts.master_mp_bam_file, opts.master_mp_bam_file + ".isize",
-            "Master MP-alignments", log)
-    slave_bam = _open_with_stats(
-        opts.slave_bam_file, opts.slave_bam_file + ".isize",
-        "Slave PE-alignments", log)
-    slave_mp = None
-    if opts.slave_mp_bam_file:
-        slave_mp = _open_with_stats(
-            opts.slave_mp_bam_file, opts.slave_mp_bam_file + ".isize",
-            "Slave MP-alignments", log)
-    metrics.phases["load_bams"] = time.time() - t_phase
+    with metrics.phase("load_bams"):
+        master_bam = _open_with_stats(
+            opts.master_bam_file, opts.master_bam_file + ".isize",
+            "Master PE-alignments", log)
+        master_mp = None
+        if opts.master_mp_bam_file:
+            master_mp = _open_with_stats(
+                opts.master_mp_bam_file, opts.master_mp_bam_file + ".isize",
+                "Master MP-alignments", log)
+        slave_bam = _open_with_stats(
+            opts.slave_bam_file, opts.slave_bam_file + ".isize",
+            "Slave PE-alignments", log)
+        slave_mp = None
+        if opts.slave_mp_bam_file:
+            slave_mp = _open_with_stats(
+                opts.slave_mp_bam_file, opts.slave_mp_bam_file + ".isize",
+                "Slave MP-alignments", log)
 
     log("[main] Loading contigs data...")
     master_ref = RefSequence.from_header(master_bam.ref_names,
@@ -217,16 +215,15 @@ def run_merge(opts: MergeOptions, log=print):
 
     # ---- partition into graphs ----
     log("[main] Partitioning blocks")
-    t_phase = time.time()
     wire = region_score.WIRE
     wire0 = {k: wire[k] for k in ("bytes_up", "arena_bytes_up",
                                   "dispatches")}
-    graphs, gstats, finish_weights = partition_blocks(
-        blocks, master_bam, master_mp, slave_bam, slave_mp, devices,
-        opts.no_multiplicity_filter, opts.output_graphs,
-        defer_weights=True, shard=((pid, nproc) if nproc > 1 else None))
-    stats_chunks.append(gstats.stats_text())
-    metrics.phases["partition"] = time.time() - t_phase
+    with metrics.phase("partition"):
+        graphs, gstats, finish_weights = partition_blocks(
+            blocks, master_bam, master_mp, slave_bam, slave_mp, devices,
+            opts.no_multiplicity_filter, opts.output_graphs,
+            defer_weights=True, shard=((pid, nproc) if nproc > 1 else None))
+        stats_chunks.append(gstats.stats_text())
 
     metrics.count("partition_bytes_wire",
                   wire["bytes_up"] - wire0["bytes_up"])
@@ -249,28 +246,26 @@ def run_merge(opts: MergeOptions, log=print):
 
     # ---- sequences ----
     log("[main] Loading contig sequences")
-    t_phase = time.time()
-    m_num = master_ref.load_sequences(opts.master_fasta_file)
-    log(f"       master sequences loaded = {m_num}")
-    if m_num != len(master_ref):
-        raise ValueError(
-            "[error] the number of contigs loaded from the master fasta "
-            "file is different from the number of sequences in master bam "
-            "headers")
-    s_num = slave_ref.load_sequences(opts.slave_fasta_file)
-    log(f"       slave sequences loaded  = {s_num}")
-    if s_num != len(slave_ref):
-        raise ValueError(
-            "[error] the number of contigs loaded from the slave fasta "
-            "file is different from the number of sequences in slave bam "
-            "headers")
-    metrics.phases["load_seqs"] = time.time() - t_phase
+    with metrics.phase("load_seqs"):
+        m_num = master_ref.load_sequences(opts.master_fasta_file)
+        log(f"       master sequences loaded = {m_num}")
+        if m_num != len(master_ref):
+            raise ValueError(
+                "[error] the number of contigs loaded from the master fasta "
+                "file is different from the number of sequences in master "
+                "bam headers")
+        s_num = slave_ref.load_sequences(opts.slave_fasta_file)
+        log(f"       slave sequences loaded  = {s_num}")
+        if s_num != len(slave_ref):
+            raise ValueError(
+                "[error] the number of contigs loaded from the slave fasta "
+                "file is different from the number of sequences in slave "
+                "bam headers")
 
     # the edge count ran on the device during the FASTA loads; fetch and
     # apply the weights now
-    t_phase = time.time()
-    finish_weights()
-    metrics.phases["partition_fetch"] = time.time() - t_phase
+    with metrics.phase("partition_fetch"):
+        finish_weights()
 
     if os.environ.get("GAM_ARENA") == "1" and engine is not None:
         # resident sequence arena (opt-in, JAX models/merge.py:278-288):
@@ -302,42 +297,41 @@ def run_merge(opts: MergeOptions, log=print):
     # ---- build paired contigs (canonical sequential graph order) ----
     pctg_list = []
     cells0 = engine.cells_aligned if engine is not None else 0
-    t_merge = time.time()
-    if nproc > 1:
-        pctg_list.extend(distributed_build_pctgs(
-            graphs, master_ref, slave_ref, master_bam, slave_bam, engine,
-            opts.no_multiplicity_filter, opts.debug, log=log))
-    elif engine is not None:
-        build_pctgs_batched(
-            graphs, master_ref, slave_ref, master_bam, slave_bam,
-            pctg_list, engine, opts.no_multiplicity_filter,
-            opts.debug, log=log,
-            progress=lambda p: log(f"[merge] Merging contigs {p}% done."),
-            ckpt_dir=(opts.output_file_prefix + ".ckpt"
-                      if opts.checkpoint else None))
-    else:
-        tot_vertices = sum(g.n for g in graphs)
-        done = 0
-        last_perc = 0
-        for g in graphs:
-            if g.n == 0:
-                continue
-            try:
-                build_pctg(g, master_ref, slave_ref, master_bam, slave_bam,
-                           pctg_list, bsw_align, opts.no_multiplicity_filter,
-                           opts.debug,
-                           log=(log if opts.debug else None))
-            except Exception as exc:  # per-graph isolation (:326)
-                log(f"Something unexpected happened processing graph "
-                    f"{g.cg_id}: {exc!r}")
-            done += g.n
-            if tot_vertices:
-                perc = int(100 * done / tot_vertices)
-                if perc > last_perc and perc % 5 == 0:
-                    log(f"[merge] Merging contigs {perc}% done.")
-                    last_perc = perc
+    with metrics.phase("align"):
+        if nproc > 1:
+            pctg_list.extend(distributed_build_pctgs(
+                graphs, master_ref, slave_ref, master_bam, slave_bam, engine,
+                opts.no_multiplicity_filter, opts.debug, log=log))
+        elif engine is not None:
+            build_pctgs_batched(
+                graphs, master_ref, slave_ref, master_bam, slave_bam,
+                pctg_list, engine, opts.no_multiplicity_filter,
+                opts.debug, log=log,
+                progress=lambda p: log(f"[merge] Merging contigs {p}% done."),
+                ckpt_dir=(opts.output_file_prefix + ".ckpt"
+                          if opts.checkpoint else None))
+        else:
+            tot_vertices = sum(g.n for g in graphs)
+            done = 0
+            last_perc = 0
+            for g in graphs:
+                if g.n == 0:
+                    continue
+                try:
+                    build_pctg(g, master_ref, slave_ref, master_bam,
+                               slave_bam, pctg_list, bsw_align,
+                               opts.no_multiplicity_filter, opts.debug,
+                               log=(log if opts.debug else None))
+                except Exception as exc:  # per-graph isolation (:326)
+                    log(f"Something unexpected happened processing graph "
+                        f"{g.cg_id}: {exc!r}")
+                done += g.n
+                if tot_vertices:
+                    perc = int(100 * done / tot_vertices)
+                    if perc > last_perc and perc % 5 == 0:
+                        log(f"[merge] Merging contigs {perc}% done.")
+                        last_perc = perc
 
-    metrics.phases["align"] = time.time() - t_merge
     if engine is not None:
         metrics.count("aligned_cells", engine.cells_aligned - cells0)
         metrics.count("align_bytes_wire", engine.bytes_up)

@@ -44,6 +44,15 @@ edit strings.
 
 The engine takes its torch.device(s) from the caller; CPU tensors run
 the kernels' plain PyTorch versions.
+
+Spans (utils.metrics.span, host operators in a running torch.profiler
+session, on the trace's clock): `bsw.align_many` a call, holding
+`bsw.prepare` (clip, bucket, chunk plan) and per chunk `bsw.pack`,
+`bsw.upload`, `bsw.launch`, `bsw.fetch`, then `bsw.decode` (device
+traceback) or `bsw.host_walk` (host traceback); over several devices
+the device traceback's `bsw.upload` and `bsw.launch` come a shard.  While a profiler
+records, each call also appends (live problems, chunks) to `call_log`,
+the attributes of its `bsw.align_many` span, in call order.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from ..device import as_devices
+from ..utils.metrics import span
 from . import arena_gather, bsw_antidiag, bsw_row, bsw_walk
 from .arena_gather import gather_windows
 from .bsw_antidiag import a_width, antidiag_dims, forward_antidiag
@@ -133,6 +143,10 @@ class BswEngine:
         # arena chunks and the problems they held (metrics)
         self.arena_chunks = 0
         self.arena_problems = 0
+        # (live problems, chunks) of each align_many call made while a
+        # torch.profiler session recorded: its bsw.align_many span's
+        # attributes, in call order
+        self.call_log: list[tuple[int, int]] = []
         # resident sequence arena: id(arr) -> (ofs, len, rev); _seq_keep
         # pins the registered arrays, _seq_refs the reverse-orientation
         # arrays served from them (id-keyed maps must keep keys alive)
@@ -233,6 +247,28 @@ class BswEngine:
         )[0]
 
     def align_many(self, problems) -> list[Alignment]:
+        with span("bsw.align_many"):
+            with span("bsw.prepare"):
+                preps, chunks, out = self._plan(problems)
+            if torch.autograd._profiler_enabled():
+                self.call_log.append((sum(len(c[0]) for c in chunks),
+                                      len(chunks)))
+            if self.traceback == "host":
+                for chunk, xw, _arena in chunks:
+                    self._run_chunk(chunk, preps, xw, out)
+                return out  # type: ignore[return-value]
+            # dispatch every chunk before fetching any result: the device
+            # queue stays full while the host packs the next chunk
+            pending = [self._dispatch(chunk, preps, xw, arena_ok)
+                       for chunk, xw, arena_ok in chunks]
+            for pend in pending:
+                self._collect(pend, preps, out)
+            return out  # type: ignore[return-value]
+
+    def _plan(self, problems):
+        """Clip every problem (_prepare), bucket the live ones by window
+        and arena use, and cut the buckets into chunks: (preps, chunks of
+        (indices, xw, arena_ok), out with the empty problems' answers)."""
         preps = [_prepare(*pr[:6],
                           pr[6] if len(pr) > 6 else False,
                           pr[7] if len(pr) > 7 else False,
@@ -263,18 +299,7 @@ class BswEngine:
                               self.hbm_budget // max(per_problem, 1)))
             for k in range(0, len(idxs), bmax):
                 chunks.append((idxs[k:k + bmax], xw, arena_ok))
-
-        if self.traceback == "host":
-            for chunk, xw, _arena in chunks:
-                self._run_chunk(chunk, preps, xw, out)
-            return out  # type: ignore[return-value]
-        # dispatch every chunk before fetching any result: the device
-        # queue stays full while the host packs the next chunk
-        pending = [self._dispatch(chunk, preps, xw, arena_ok)
-                   for chunk, xw, arena_ok in chunks]
-        for pend in pending:
-            self._collect(pend, preps, out)
-        return out  # type: ignore[return-value]
+        return preps, chunks, out
 
     def _pad_batch(self, n: int) -> int:
         """Batch sizes quantised to {8, 16, 32, 64, ...} a device, times
@@ -335,16 +360,17 @@ class BswEngine:
 
     def _pack_and_count(self, chunk, preps, xw, arena_ok):
         """Pack one chunk and count its upload: (arrays, B)."""
-        self.dispatches += 1
-        if arena_ok:
-            cols = self._pack_chunk_arena(chunk, preps, xw)
-            self.bytes_up += 12 * 4 * cols.shape[1]
-            self.arena_chunks += 1
-            self.arena_problems += len(chunk)
-            return (cols,), cols.shape[1]
-        a_pk, b_pk, scal = self._pack_chunk(chunk, preps, xw)
-        self.bytes_up += a_pk.nbytes + b_pk.nbytes + scal.nbytes
-        return (a_pk, b_pk, scal), a_pk.shape[0]
+        with span("bsw.pack"):
+            self.dispatches += 1
+            if arena_ok:
+                cols = self._pack_chunk_arena(chunk, preps, xw)
+                self.bytes_up += 12 * 4 * cols.shape[1]
+                self.arena_chunks += 1
+                self.arena_problems += len(chunk)
+                return (cols,), cols.shape[1]
+            a_pk, b_pk, scal = self._pack_chunk(chunk, preps, xw)
+            self.bytes_up += a_pk.nbytes + b_pk.nbytes + scal.nbytes
+            return (a_pk, b_pk, scal), a_pk.shape[0]
 
     def _shard_inputs(self, arrays, rows, d: int, xw: int, arena=None):
         """One shard's forward inputs on device d: (a_pk, b_pk, begin_a,
@@ -402,30 +428,40 @@ class BswEngine:
                      else None)
             stream, ctx = self._stream(d, turn)
             with ctx:
-                a_d, b_d, begin_a, end_a, a_len, x_size, fstart, fend = \
-                    self._shard_inputs(arrays, rows, d, xw, arena)
-                forward = forward_row if row else forward_antidiag
-                dirs, last_row, diag = forward(
-                    a_d, b_d, begin_a, end_a, a_len, x_size, fstart, band)
-                summary, edits = walk(dirs, a_d, b_d, begin_a, end_a,
-                                      x_size, fend, last_row, diag, band,
-                                      lmax, with_edits=not lean,
-                                      layout=ROW if row else ANTIDIAG)
+                with span("bsw.upload"):
+                    a_d, b_d, begin_a, end_a, a_len, x_size, fstart, fend = \
+                        self._shard_inputs(arrays, rows, d, xw, arena)
+                with span("bsw.launch"):
+                    forward = forward_row if row else forward_antidiag
+                    dirs, last_row, diag = forward(
+                        a_d, b_d, begin_a, end_a, a_len, x_size, fstart,
+                        band)
+                    summary, edits = walk(dirs, a_d, b_d, begin_a, end_a,
+                                          x_size, fend, last_row, diag, band,
+                                          lmax, with_edits=not lean,
+                                          layout=ROW if row else ANTIDIAG)
             shards.append((summary, edits, stream))
         return chunk, shards
 
     def _collect(self, pend, preps, out):
         chunk, shards = pend
         parts, e_parts = [], []
-        for summary, edits, stream in shards:
-            # the fetches queue on the shard's stream, behind its walk
-            with (torch.cuda.stream(stream) if stream is not None
-                  else contextlib.nullcontext()):
-                parts.append(summary.cpu().numpy())  # the fetch (lean)
-                if edits is not None:
-                    e_parts.append(edits.cpu().numpy())
-        s = np.concatenate(parts, axis=1)
-        e = np.concatenate(e_parts, axis=0) if e_parts else None
+        with span("bsw.fetch"):
+            for summary, edits, stream in shards:
+                # the fetches queue on the shard's stream, behind its walk
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    parts.append(summary.cpu().numpy())  # the fetch (lean)
+                    if edits is not None:
+                        e_parts.append(edits.cpu().numpy())
+        with span("bsw.decode"):
+            self._decode(chunk, preps, np.concatenate(parts, axis=1),
+                         np.concatenate(e_parts, axis=0) if e_parts else None,
+                         out)
+
+    def _decode(self, chunk, preps, s, e, out):
+        """Alignment values of a chunk from its (13, B) summary and, with
+        edits fetched, its (B, L) edit codes."""
         (xf, yf, cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy,
          score, found) = (s[k] for k in range(13))
         band = self.band
@@ -479,15 +515,26 @@ class BswEngine:
         walk on the host (bsw_batch.py::_run_chunk)."""
         band = self.band
         arrays, B = self._pack_and_count(chunk, preps, xw, False)
-        queued = []
-        for d, rows in self._shards(B, len(chunk)):
-            a_d, b_d, begin_a, end_a, a_len, x_size, fstart, _fend = \
-                self._shard_inputs(arrays, rows, d, xw)
-            queued.append(forward_row(a_d, b_d, begin_a, end_a, a_len,
-                                      x_size, fstart, band))
-        dirs = np.concatenate([q[0].cpu().numpy() for q in queued])
-        last_row = torch.cat([q[1].cpu() for q in queued])
-        diag = torch.cat([q[2].cpu() for q in queued])
+        shards = self._shards(B, len(chunk))
+        with span("bsw.upload"):
+            inputs = [self._shard_inputs(arrays, rows, d, xw)
+                      for d, rows in shards]
+        with span("bsw.launch"):
+            queued = [forward_row(a_d, b_d, begin_a, end_a, a_len, x_size,
+                                  fstart, band)
+                      for a_d, b_d, begin_a, end_a, a_len, x_size, fstart,
+                      _fend in inputs]
+        with span("bsw.fetch"):
+            dirs = np.concatenate([q[0].cpu().numpy() for q in queued])
+            last_row = torch.cat([q[1].cpu() for q in queued])
+            diag = torch.cat([q[2].cpu() for q in queued])
+        with span("bsw.host_walk"):
+            self._host_walk(chunk, preps, dirs, last_row, diag, out)
+
+    def _host_walk(self, chunk, preps, dirs, last_row, diag, out):
+        """Find-max and the walk of a chunk on the host, from its fetched
+        directions, last row and diagonal."""
+        band = self.band
         n = len(chunk)
         sc = [torch.tensor([getattr(preps[i], f) for i in chunk],
                            dtype=torch.int32)

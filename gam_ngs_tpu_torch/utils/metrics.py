@@ -5,6 +5,11 @@ src/CreateBlocks.cc:66/126/164) and maxRSS; this adds a structured
 record (per-phase seconds, blocks/s, aligned cells/s) written as
 `<prefix>.metrics.json` so performance is measurable run-over-run
 (SURVEY.md §5 observability).
+
+`span(name)` marks a stretch of the host thread in whatever
+torch.profiler session is recording: the same Kineto/CUPTI trace, on the
+same clock, as the device's kernels and copies.  Each phase is the span
+`gam.<phase>`; the align engine's spans are `bsw.*` (ops/bsw_engine.py).
 """
 
 from __future__ import annotations
@@ -12,6 +17,18 @@ from __future__ import annotations
 import json
 import time
 from contextlib import contextmanager
+
+from torch._C._profiler import _RecordFunctionFast
+
+
+def span(name: str):
+    """A context naming a host span `name` in the running torch.profiler
+    session (about half a microsecond when none runs).  It is recorded
+    as a host operator, not as record_function's user annotation, which
+    the profiler mirrors onto the device's timeline as if it were device
+    work.  Names are fixed strings, so a trace's spans aggregate by
+    name."""
+    return _RecordFunctionFast(name)
 
 
 class Metrics:
@@ -24,7 +41,8 @@ class Metrics:
     def phase(self, name: str):
         t = time.time()
         try:
-            yield
+            with span("gam." + name):
+                yield
         finally:
             self.phases[name] = self.phases.get(name, 0.0) + time.time() - t
 
