@@ -232,7 +232,9 @@ from gam_ngs_tpu_torch.ops.bsw_row import (  # noqa: E402
     row_instance,
 )
 from gam_ngs_tpu_torch.ops.bsw_walk import (  # noqa: E402
+    ANSWER_ROWS,
     ANTIDIAG,
+    ITERS,
     ROW,
     WIDE_RING_BAND,
     ring_info,
@@ -330,7 +332,7 @@ def kernel_vs_plain(name, fargs, fe, lmax, with_edits, plain_fwd=True):
         wk = timed_once(ms, "bsw_walk", lambda: walk(*wargs, layout=layout))
         wp = timed_once(ms, "bsw_walk_plain",
                         lambda: walk_torch(*wargs, layout=layout))
-        errs[walk_name(band, layout)] = max_err(wk, wp)
+        errs[walk_name(band, layout)] = walk_err(wk, wp)
     return errs, ms
 
 
@@ -371,6 +373,17 @@ def max_err(xs, ys) -> int:
         err = max(err, int((x.long() - y.long()).abs().max().item())
                   if x.numel() else 0)
     return err
+
+
+def walk_err(got, want) -> int:
+    """max|kernel - plain| of two walks' answers: the summary's answer
+    rows and the edit codes.  Raises where got's iterations exceed its
+    steps, or are none where it stepped."""
+    iters, cnt = got[0][ITERS], got[0][2]
+    if bool((iters > cnt).any()) or bool(((iters > 0) != (cnt > 0)).any()):
+        raise AssertionError("walk iterations outside 1 .. its steps")
+    return max_err((got[0][:ANSWER_ROWS], got[1]),
+                   (want[0][:ANSWER_ROWS], want[1]))
 
 
 def note_err(res, label, errs: dict) -> None:
@@ -1706,14 +1719,14 @@ def phase_timing(res, card):
             out[wname + "_plain"] = timed_once(
                 t, wname + "_plain", lambda: walk_torch(*wargs, layout=layout))
             errs[name] = max_err(out[name], out[name + "_plain"])
-            errs["bsw_walk"] = max(errs.get("bsw_walk", 0), max_err(
+            errs["bsw_walk"] = max(errs.get("bsw_walk", 0), walk_err(
                 out[wname], out[wname + "_plain"]))
             bounds[name] = bound(name, fargs, fe, out[name], ops_rate)
             bounds[wname] = bound("bsw_walk", fargs, fe,
                                   (*out[wname], lr, dg), ops_rate)
         note_err(res, f"[timing] B=64 band={band} XW={xw}", errs)
         # both forwards hold the same cells: their walks agree
-        if max_err(out["bsw_walk"], out["bsw_walk_row"]):
+        if walk_err(out["bsw_walk"], out["bsw_walk_row"]):
             raise AssertionError(f"[timing] XW={xw}: the walks over the two "
                                  f"forwards' words differ")
         # the serial steps a launch lasts: its longest problem's
@@ -1795,8 +1808,8 @@ def time_wide_walk(res, card, ops_rate) -> None:
                           lambda: walk_torch(*wargs, layout=ROW))
         name = walk_name(band, ROW)
         note_err(res, f"[timing] B=64 band={band} XW={xw} walk (row words)",
-                 {name: max(max_err(got, want),
-                            max_err(fm, walk_torch(*fm_args, layout=ROW)))})
+                 {name: max(walk_err(got, want),
+                            walk_err(fm, walk_torch(*fm_args, layout=ROW)))})
         b_ms, b_by = bound("bsw_walk", fargs, fe, (*got, lr, dg), ops_rate)
         summary = got[0]
         steps = int(summary[2].max())

@@ -12,32 +12,57 @@
 //      FORCE_MAXGAP_LEN: the reference's unsigned underflow).  The first
 //      maximum wins (banded_smith_waterman.cc:175-214), so the lanes
 //      reduce (score, candidate order) as max of score, then min of order;
-//   2. the walk from that cell, one serial chain that every lane of the
-//      warp follows in step, reading each step's 2-bit direction from the
-//      forward kernel's words and the characters from the 4-bit packed
-//      windows, until the walk leaves the band or the sequences.
+//   2. the walk from that cell, a dependent chain of iterations that every
+//      lane of the warp follows in step, reading the 2-bit directions
+//      from the forward kernel's words and the characters from the 4-bit
+//      packed windows, until the walk leaves the band or the sequences.
 //      layout 0 reads bsw_antidiag's step-major words (B, NP, band+1):
 //      cell (x, y) at word (2x+y)/16, lane y/2, bits 2*((2x+y) & 15);
 //      layout 1 reads bsw_row's row-major words (B, NP, 2*band+1): cell
 //      (x, y) at word x/16, lane y, bits 2*(x & 15).
-// It writes the 13-int summary (xf, yf, cnt, matches, gapa, gapb, hasm,
-// fmx, fmy, lmx, lmy, score, found), (13, B), and, when `edits` is not
-// null, the edit codes in walk order, (B, lmax) bytes.
+// It writes the 14-int summary (xf, yf, cnt, matches, gapa, gapb, hasm,
+// fmx, fmy, lmx, lmy, score, found, iters), (14, B): the answer, then the
+// chain's iterations; and, when `edits` is not null, the edit codes in
+// walk order, (B, lmax) bytes.
 //
-// The serial chain reads only the direction words: each step reads its
-// 2-bit direction from shared memory and moves (x, y); lane s & 31 keeps
-// step s's cell and direction.  Every 32 steps (and at the end) the warp
-// settles those steps in parallel: each lane reads its cell's a and b
-// codes, and ballots give the match and gap counts, the first and last
-// match and, when asked for, one coalesced store of the 32 edit codes.
+// An iteration is one step or one diagonal run.  A diagonal step (x-1,
+// y) reads the same column of the words, 2 fields further down in
+// layout 0 (8 steps a word) and 1 in layout 1 (16 a word).  Where the
+// walk stands on a diagonal step and every field of its word's column
+// below it, on the step's parity, is diagonal too (one shift, one mask,
+// one compare), the warp takes the run whole, 32 word rows an iteration
+// (Run, run_steps, settle_run):
+//   look: lane l loads the column word of word row cw-l (256 steps ahead
+//     in layout 0, 512 in layout 1) straight from device memory, and the
+//     a and b code words of its own steps; a ballot finds the first lane
+//     whose word holds a field that is not diagonal, and so the run's
+//     length D;
+//   clip: the run takes L = min(D, lmax - s, x + 1, ba + x + y - band + 1)
+//     steps, where the per-step chain would have stopped;
+//   settle: each lane compares its steps' a and b codes as 4-bit nibbles
+//     (XOR and a zero-nibble test; code 4, N, on either side matches); a
+//     warp sum gives the matches, ballots the first and last of them, and
+//     each lane stores its edit codes;
+//   overlap: where the lookahead found neither a field that ends the run
+//     nor a clip, the next lookahead's loads go out before the settle.
+// Every other step takes the per-step chain: it reads its 2-bit
+// direction from shared memory and moves (x, y); lane s - sb keeps step
+// s's cell and direction, sb being the first step not yet settled.
+// Every 32 steps, before a run and at the end, the warp settles those
+// steps in parallel: each lane reads its cell's a and b codes, and
+// ballots give the match and gap counts, the first and last match and,
+// when asked for, one coalesced store of the edit codes.
 //
-// Staging: a walk visits the word rows (2x+y)/16 (layout 0) or x/16
-// (layout 1) in descending order, one row at most a step.  Each warp
+// Staging of the per-step chain: it visits the word rows (2x+y)/16
+// (layout 0) or x/16 (layout 1) in descending order.  Each warp
 // keeps a ring of kGroups groups of kGroupRows whole word rows in shared
 // memory (the Ring).  Entering group g the warp starts the copies of
 // group g-kGroups+2, with the a and b code words its rows' cells can
 // read, as one commit group, and waits for the group of g; a row change
-// inside a group only moves a pointer.  The code rings are wide enough
+// inside a group only moves a pointer.  After a run the chain steps the
+// ring down to the run's end group by group where that group was already
+// in flight, and fills the ring anew around it where the run went
+// further.  The code rings are wide enough
 // that the codes of the rows up to 3 above the walk's (the last 32
 // steps) stay in place.  Two rings:
 //   NarrowRing, layout 0 and layout 1 below kWideBand: four groups of
@@ -57,9 +82,11 @@
 //   ends, bytes past it in the same 16-byte chunk, so on the same page);
 //   the walk reads none of them.
 //
-// Bound on this card: the walk is one dependent chain per problem, a
-// shared-memory load and ~10 dependent int32 operations a step; the
-// copies run ahead of it.
+// Bound on this card: a per-step iteration is a shared-memory load and
+// ~10 dependent int32 operations; a run iteration is one round trip to
+// device memory (to L2 where the forward's words still are) for up to
+// 256 (layout 0) or 512 (layout 1) steps, the next one's loads in flight
+// under its settle.  The ring's copies run ahead of the chain.
 
 #include <climits>
 #include <cstdint>
@@ -111,6 +138,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 #endif
+
+// One lane's part of a diagonal run's lookahead from cell (x, y) (see
+// the note above).  Step k of the run is cell (x - k, y); a full word
+// holds kSteps of them, kStride fields apart; the lane's steps k .. k +
+// kSteps - 1 read the b codes lo .. lo + kSteps - 1 (lo = x - k -
+// kSteps + 1, step j of the lane at code kSteps - 1 - j) and the a codes
+// y above them, which lie in kWords code words each.
+template <int LAYOUT>
+struct Run {
+  static constexpr int kStride = LAYOUT ? 1 : 2;
+  static constexpr int kSteps = 16 / kStride;
+  static constexpr int kWords = kSteps / 8 + 1;
+  // the fields of a step's parity, shifted up to end in field 15
+  static constexpr uint32_t kParity = LAYOUT ? 0xffffffffu : 0xccccccccu;
+  int x;   // the run's first cell is (x, y), alike in every lane
+  int c0;  // steps left in its word row, alike in every lane
+  int k;   // this lane's first step: the first of word row cw - lane
+  uint32_t w;  // this lane's column word
+  uint32_t a[kWords], b[kWords];
+};
 
 // One warp's staging state: the word-row ring and the two code-word
 // rings, and how far down the code words have been fetched.
@@ -187,6 +234,27 @@ struct Stage {
     }
     cp_async_commit();
   }
+  // this lane's part of the lookahead of a diagonal run from cell (x,
+  // y): loads only, from device memory, so that they can fly while the
+  // warp settles the run before
+  __device__ void look(Run<LAYOUT>& r, int x, int y) const {
+    using R = Run<LAYOUT>;
+    const int t = LAYOUT ? x : 2 * x + y;
+    r.x = x;
+    r.c0 = ((t & 15) >> (R::kStride - 1)) + 1;
+    r.k = tid ? r.c0 + R::kSteps * (tid - 1) : 0;
+    const int v = (t >> 4) - tid;
+    r.w = v >= 0 ? (uint32_t)__ldg(dp + (size_t)v * KL +
+                                   (LAYOUT ? y : y >> 1))
+                 : ~0u;
+    const int lo = x - r.k - (R::kSteps - 1);
+#pragma unroll
+    for (int i = 0; i < R::kWords; ++i) {
+      const int qb = (lo >> 3) + i, qa = ((lo + y) >> 3) + i;
+      r.b[i] = qb >= 0 && qb < nwb ? __ldg(bp + qb) : 0u;
+      r.a[i] = qa >= 0 && qa < nwa ? __ldg(ap + qa) : 0xffffffffu;
+    }
+  }
   __device__ int code_a(int q) const {
     return (ca[(q >> 3) & cmask] >> (4 * (q & 7))) & 15;
   }
@@ -199,6 +267,19 @@ struct Stage {
 struct Tally {
   int matches = 0, gapa = 0, gapb = 0, hasm = 0;
   int fmx = 0, fmy = 0, lmx = 0, lmy = 0;
+  // n > 0 more matches, the first of them seen at (lx, ly) and the last
+  // at (fx, fy): walk order is reverse alignment order, so the last
+  // match seen is the alignment's first, the first seen its last
+  __device__ void matched(int n, int fx, int fy, int lx, int ly) {
+    fmx = fx;
+    fmy = fy;
+    if (!hasm) {
+      lmx = lx;
+      lmy = ly;
+    }
+    hasm = 1;
+    matches += n;
+  }
 };
 
 // Settle the n (1..32) steps s0 .. s0+n-1 that lanes 0 .. n-1 recorded:
@@ -217,20 +298,73 @@ __device__ __forceinline__ void settle(const S& sg, Tally& tl,
     ed[s0 + sg.tid] = rd == kDiag ? (is_match ? kMatch : kMismatch)
                                   : (rd == kUp ? kGapA : kGapB);
   if (m) {
-    // walk order is reverse alignment order: the last match seen is the
-    // alignment's first, the first seen its last
     const int last = 31 - __clz(m), first = __ffs(m) - 1;
-    tl.fmx = __shfl_sync(kFull, rx, last);
-    tl.fmy = __shfl_sync(kFull, ry, last);
+    const int fx = __shfl_sync(kFull, rx, last);
+    const int fy = __shfl_sync(kFull, ry, last);
     const int lx = __shfl_sync(kFull, rx, first);
     const int ly = __shfl_sync(kFull, ry, first);
-    if (!tl.hasm) {
-      tl.lmx = lx;
-      tl.lmy = ly;
-    }
-    tl.hasm = 1;
-    tl.matches += __popc(m);
+    tl.matched(__popc(m), fx, fy, lx, ly);
   }
+}
+
+// The steps D of the diagonal run whose lookahead is r: to the first
+// field that is not diagonal, on the run's parity, in word row cw, cw-1,
+// ..., cw-31 (from the run's first step down in cw, whole words below),
+// or all of them.  Alike in every lane.
+template <int LAYOUT>
+__device__ __forceinline__ int run_steps(const Run<LAYOUT>& r, int y,
+                                         int tid) {
+  using R = Run<LAYOUT>;
+  const int t = LAYOUT ? r.x : 2 * r.x + y;
+  // the lane's first field: the run's in word row cw, the top one below
+  const int f = tid ? (LAYOUT ? 15 : 14 + (t & 1)) : t & 15;
+  const uint32_t nd = (r.w << (30 - 2 * f)) & R::kParity;
+  const unsigned stop = __ballot_sync(kFull, nd != 0);
+  const int d = r.k + (nd ? (15 - ((31 - __clz(nd)) >> 1)) / R::kStride
+                          : 0);
+  return stop ? __shfl_sync(kFull, d, __ffs(stop) - 1)
+              : r.c0 + R::kSteps * 31;
+}
+
+// high bit of each nibble of v that is 0
+__device__ __forceinline__ uint32_t zero_nibbles(uint32_t v) {
+  return ~(((v & 0x77777777u) + 0x77777777u) | v) & 0x88888888u;
+}
+
+// Settle the L steps s .. s+L-1 of the diagonal run whose lookahead is
+// r, as settle does the per-step chain's.
+template <int LAYOUT>
+__device__ __forceinline__ void settle_run(const Run<LAYOUT>& r, int y,
+                                           int L, Tally& tl, uint8_t* ed,
+                                           int s, int tid) {
+  using R = Run<LAYOUT>;
+  const int lo = r.x - r.k - (R::kSteps - 1);  // b code of nibble 0
+  const int n = min(tid ? R::kSteps : r.c0, L - r.k);  // this lane's steps
+  const uint32_t pa = 4 * ((lo + y) & 7), pb = 4 * (lo & 7);
+  uint64_t m = 0;  // bit 4i+3: code lo+i matches
+#pragma unroll
+  for (int g = 0; g < R::kSteps / 8; ++g) {
+    const uint32_t va = __funnelshift_r(r.a[g], r.a[g + 1], pa);
+    const uint32_t vb = __funnelshift_r(r.b[g], r.b[g + 1], pb);
+    m |= (uint64_t)(zero_nibbles(va ^ vb) | zero_nibbles(va ^ 0x44444444u) |
+                    zero_nibbles(vb ^ 0x44444444u))
+         << (32 * g);
+  }
+  m = n > 0 ? m & (~0ull << (4 * (R::kSteps - n))) : 0ull;
+  const int matches = __reduce_add_sync(kFull, __popcll(m));
+  const unsigned has = __ballot_sync(kFull, m != 0);
+  if (has) {
+    // the run's last match is the lowest code of the last lane with one
+    const int last = lo + ((__ffsll(m) - 1) >> 2);
+    const int first = lo + ((63 - __clzll(m)) >> 2);
+    const int fx = __shfl_sync(kFull, last, 31 - __clz(has));
+    const int lx = __shfl_sync(kFull, first, __ffs(has) - 1);
+    tl.matched(matches, fx, y, lx, y);
+  }
+  if (ed)
+    for (int j = 0; j < n; ++j)
+      ed[s + r.k + j] =
+          (m >> (4 * (R::kSteps - 1 - j) + 3)) & 1 ? kMatch : kMismatch;
 }
 
 template <int LAYOUT, class Ring>
@@ -325,19 +459,23 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
   int cw = 0;        // word row staged for the current step
   const uint32_t* row = sg.rows;  // its slot
   int rx = 0, ry = 0, rd = 0;     // the cell and direction this lane keeps
-  if (active) {
-    cw = (LAYOUT ? x : 2 * x + y) >> 4;
-    // every code word up to the highest the start row can read
+  int sb = 0;                     // the first step not yet settled
+  int iters = 0;                  // the chain's iterations
+  // the ring around word row v: every code word up to the highest its
+  // cells can read, and the groups from v's down
+  auto prime = [&](int v) {
+    cw = v;
     sg.a_lo = (LAYOUT ? 16 * cw + 15 + 2 * band : 8 * cw + 15 + band) / 8 + 1;
     sg.b_lo = (LAYOUT ? 16 * cw + 15 : 8 * cw + 7) / 8 + 1;
     for (int g = cw / GR; g > cw / GR - NG + 1; --g) sg.fetch(g);
     cp_async_wait<NG - 2>();
     __syncwarp();
     row = sg.row_ptr(cw);
-  }
+  };
+  if (active) prime((LAYOUT ? x : 2 * x + y) >> 4);
   while (active) {
     const int t = LAYOUT ? x : 2 * x + y;
-    if (t < 16 * cw) {  // one row down: row cw-1
+    while (t < 16 * cw) {  // one row down: row cw-1
       --cw;
       if (cw % GR == GR - 1) {  // and into group cw/GR
         __syncwarp();  // every lane is done with the slots refilled next
@@ -347,8 +485,40 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
       }
       row = sg.row_ptr(cw);
     }
-    const int d = (row[LAYOUT ? y : y >> 1] >> ((t & 15) * 2)) & 3;
-    if (tid == (s & 31)) {
+    const uint32_t wd = row[LAYOUT ? y : y >> 1];
+    const int sh = (t & 15) * 2;
+    if (((wd << (30 - sh)) & Run<LAYOUT>::kParity) == 0) {
+      // a diagonal run: the steps before it settled first
+      if (s > sb) settle(sg, tl, s - sb, rx, ry, rd, ed, sb);
+      Run<LAYOUT> cur, next;
+      sg.look(cur, x, y);
+      if (tid == 0) cur.w = wd;  // the word tested: at least one step
+      bool more;
+      do {
+        ++iters;
+        const int D = run_steps(cur, y, tid);
+        const int clip = min(min(lmax - s, x + 1), ba + x + y - band + 1);
+        const int L = min(D, clip);
+        more = D == cur.c0 + Run<LAYOUT>::kSteps * 31 && D < clip;
+        if (more) sg.look(next, x - D, y);
+        settle_run(cur, y, L, tl, ed, s, tid);
+        s += L;
+        x -= L;
+        if (more) cur = next;
+      } while (more);
+      sb = s;
+      active = x >= 0 && ba + x + y - band >= 0 && s < lmax;
+      const int v = (LAYOUT ? x : 2 * x + y) >> 4;
+      if (active && v / GR < cw / GR - NG + 2) {
+        // past the groups in flight: the ring anew around the run's end
+        cp_async_wait<0>();
+        __syncwarp();
+        prime(v);
+      }
+      continue;
+    }
+    const int d = (wd >> sh) & 3;
+    if (tid == s - sb) {
       rx = x;
       ry = y;
       rd = d;
@@ -357,16 +527,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps) walk_kernel(
     if (d == kUp) ++y;
     if (d == kLeft) --y;
     ++s;
+    ++iters;
     active = x >= 0 && y >= 0 && ba + x + y - band >= 0 && s < lmax;
-    if ((s & 31) == 0 || !active) settle(sg, tl, ((s - 1) & 31) + 1, rx, ry,
-                                         rd, ed, (s - 1) & ~31);
+    if (s - sb == 32 || !active) {
+      settle(sg, tl, s - sb, rx, ry, rd, ed, sb);
+      sb = s;
+    }
   }
   cp_async_wait<0>();
   if (tid == 0) {
-    const int out[13] = {x,      y,      s,      tl.matches, tl.gapa,
+    const int out[14] = {x,      y,      s,      tl.matches, tl.gapa,
                          tl.gapb, tl.hasm, tl.fmx, tl.fmy,    tl.lmx,
-                         tl.lmy, ms,     (int)found};
-    for (int r = 0; r < 13; ++r) summary[(size_t)r * B + b] = out[r];
+                         tl.lmy, ms,     (int)found, iters};
+    for (int r = 0; r < 14; ++r) summary[(size_t)r * B + b] = out[r];
   }
 }
 

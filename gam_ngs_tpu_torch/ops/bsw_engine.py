@@ -9,7 +9,7 @@ anti-diagonal one (ops.bsw_antidiag) or, with kernel="row"
 
 Device traceback: the find-max + walk kernel (ops.bsw_walk) follows the
 forward on the device.  Every chunk is dispatched before any result is
-fetched; each chunk's fetch is one (13, B) int32 summary (`lean`), or
+fetched; each chunk's fetch is one (14, B) int32 summary (`lean`), or
 that plus the edit codes (`edits`).  The direction words stay on the
 device and are freed once the walk is queued.  On CUDA each chunk's
 upload, kernels and fetch run on one stream of a fixed pool of
@@ -78,7 +78,7 @@ from .bsw_host import (
 )
 from .bsw_ref import DEFAULT_BAND_SIZE, bsw_align
 from .bsw_row import forward_row
-from .bsw_walk import ANTIDIAG, ROW, find_max_torch, walk
+from .bsw_walk import ANTIDIAG, ITERS, ROW, find_max_torch, walk
 from .editops import MATCH, Alignment
 
 
@@ -135,9 +135,11 @@ class BswEngine:
         self.bytes_up = 0       # host->device payload bytes (metrics)
         self.dispatches = 0
         # ragged-batching utilization: live problems vs padded batch
-        # rows, and live DP rows vs padded xw*B rows
+        # rows, and live DP rows vs padded xw*B rows; the device walk's
+        # steps and its iterations (one a step in the plain walk, one a
+        # diagonal run of up to 32 word rows in the kernel)
         self.util = {"live": 0, "batch": 0, "rows_live": 0,
-                     "rows_padded": 0}
+                     "rows_padded": 0, "walk_steps": 0, "walk_iters": 0}
         # shards dispatched to each device, by position in self.devices
         self.shard_runs = [0] * len(self.devices)
         # arena chunks and the problems they held (metrics)
@@ -454,13 +456,16 @@ class BswEngine:
                     parts.append(summary.cpu().numpy())  # the fetch (lean)
                     if edits is not None:
                         e_parts.append(edits.cpu().numpy())
+        s = np.concatenate(parts, axis=1)
+        self.util["walk_steps"] += int(s[2].sum())
+        self.util["walk_iters"] += int(s[ITERS].sum())
         with span("bsw.decode"):
-            self._decode(chunk, preps, np.concatenate(parts, axis=1),
+            self._decode(chunk, preps, s,
                          np.concatenate(e_parts, axis=0) if e_parts else None,
                          out)
 
     def _decode(self, chunk, preps, s, e, out):
-        """Alignment values of a chunk from its (13, B) summary and, with
+        """Alignment values of a chunk from its (14, B) summary and, with
         edits fetched, its (B, L) edit codes."""
         (xf, yf, cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy,
          score, found) = (s[k] for k in range(13))

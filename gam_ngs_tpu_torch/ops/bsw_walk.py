@@ -6,18 +6,21 @@ packed windows: with layout ANTIDIAG the step-major words of
 ops.bsw_antidiag (B, NP, band+1), cell (x, y) at word (2x+y)/16, lane
 y/2, bits 2*((2x+y) & 15); with layout ROW the row-major words of
 ops.bsw_row (B, XW/16, 2*band+1), cell (x, y) at word x/16, lane y,
-bits 2*(x & 15).  They return the (13, B) int32 summary
-(rows xf, yf, cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy, score,
-found) plus, when asked, the (B, lmax) uint8 edit codes in walk order
-(zero past each walk's end; the wrapper zero-fills them).  Both stop
-where every walk has left the band or the sequences; the steps the JAX
-scan runs after that change nothing.
+bits 2*(x & 15).  They return the (14, B) int32 summary (rows xf, yf,
+cnt, matches, gapa, gapb, hasm, fmx, fmy, lmx, lmy, score, found: the
+answer, ANSWER_ROWS; then ITERS, the walk's iterations) plus, when
+asked, the (B, lmax) uint8 edit codes in walk order (zero past each
+walk's end; the wrapper zero-fills them).  Both stop where every walk
+has left the band or the sequences; the steps the JAX scan runs after
+that change nothing.  The plain version takes one step an iteration;
+the kernel takes a diagonal run of up to 32 word rows in one, so its
+ITERS row is at most cnt, and far below it on near-identical windows.
 
 The kernel takes every band its layout's forward takes: ANTIDIAG up to
 bsw_antidiag.MAX_BAND, ROW up to bsw_row.MAX_BAND.  It stages each
 warp's word rows in a ring in shared memory: 16 rows, and for ROW from
 band WIDE_RING_BAND on, where 16 rows of 2*band+1 words do not fit, 3
-rows.
+rows.  The diagonal runs read their words straight from device memory.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from .bsw_row import MAX_BAND
 from .editops import GAP_A, GAP_B, MATCH, MISMATCH
 
 ANTIDIAG, ROW = 0, 1  # direction-word layouts
+ANSWER_ROWS = 13  # the summary's rows of the answer
+ITERS = ANSWER_ROWS  # the summary's last row: the walk's iterations
 # csrc/bsw_walk.cu's kWideBand: ROW's first band on the 3-row ring
 WIDE_RING_BAND = 1024
 
@@ -142,7 +147,8 @@ def walk_torch(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end,
         active = active & (x >= 0) & (y >= 0) & (ba + x + y - band >= 0)
     summary = torch.stack([x, y, cnt, matches, gapa, gapb,
                            hasm.to(torch.int32), fmx, fmy, lmx, lmy,
-                           score.to(torch.int32), found.to(torch.int32)])
+                           score.to(torch.int32), found.to(torch.int32),
+                           cnt])
     return summary.to(torch.int32), edits
 
 
@@ -179,7 +185,7 @@ def ring_info(band: int, layout: int) -> tuple[int, int, int, int, int]:
 def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
          diag, band: int, lmax: int, with_edits: bool,
          layout: int = ANTIDIAG):
-    """Find-max + walk of B problems -> (summary (13, B) int32, edits
+    """Find-max + walk of B problems -> (summary (14, B) int32, edits
     (B, lmax) uint8 or None).  CUDA tensors launch the kernel (or raise);
     CPU tensors run the plain version."""
     if layout not in (ANTIDIAG, ROW):
@@ -216,7 +222,8 @@ def walk(dirs, a_pk, b_pk, begin_a, end_a, x_size, force_end, last_row,
     if last_word >= 16 * NP:
         raise ValueError(f"dirs has {NP} words per lane, too few for "
                          f"xw={xw}, band={band}")
-    summary = torch.empty((13, B), dtype=torch.int32, device=dev)
+    summary = torch.empty((ANSWER_ROWS + 1, B), dtype=torch.int32,
+                          device=dev)
     edits = (torch.zeros((B, lmax), dtype=torch.uint8, device=dev)
              if with_edits else None)
     if B == 0:

@@ -221,8 +221,13 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clzll(long long x) {
+  return x ? __builtin_clzll((unsigned long long)x) : 64;
+}
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline bool __any_sync(unsigned, bool p) {
   const long long* buf = emu::post(p);
   bool r = false;
@@ -233,6 +238,12 @@ inline int __reduce_max_sync(unsigned, int v) {
   const long long* buf = emu::post(v);
   long long r = buf[0];
   for (int i = 1; i < 32; ++i) r = std::max(r, buf[i]);
+  return (int)r;
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  const long long* buf = emu::post(v);
+  long long r = 0;
+  for (int i = 0; i < 32; ++i) r += buf[i];
   return (int)r;
 }
 inline void __syncwarp() { emu::my_warp->bar.arrive_and_wait(); }

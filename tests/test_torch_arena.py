@@ -365,7 +365,9 @@ def test_arena_engine_matches_jax_arena_engine():
     assert all(jeng._seq_lookup(p[0]) and jeng._seq_lookup(p[3])
                for p in jax_problems)
     assert eng.arena_problems == eng.util["live"] > 0
-    assert eng.util == jeng.util and eng.cells_aligned == jeng.cells_aligned
+    assert {k: eng.util[k] for k in jeng.util} == jeng.util
+    assert eng.cells_aligned == jeng.cells_aligned
+    assert eng.util["walk_iters"] == eng.util["walk_steps"] > 0
     arena_bytes = max(1 << 20, -(-sum(map(len, contigs)) // (1 << 20))
                       << 20) // 2
     assert eng.bytes_up == jeng.bytes_up == \

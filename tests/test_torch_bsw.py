@@ -30,7 +30,7 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (
     forward_antidiag_torch,
 )
 from gam_ngs_tpu_torch.ops.bsw_engine import BswEngine
-from gam_ngs_tpu_torch.ops.bsw_walk import find_max_torch, walk
+from gam_ngs_tpu_torch.ops.bsw_walk import ITERS, find_max_torch, walk
 
 CPU = torch.device("cpu")
 
@@ -256,6 +256,43 @@ def test_engine_matches_bsw_align_soak(fetch):
     assert eng.util["live"] == len(problems)
 
 
+def test_engine_counts_walk_steps_and_iterations():
+    """BswEngine.util counts the device walk's steps (the answers'
+    lengths) and its iterations: on the CPU the plain walk takes one step
+    an iteration, so the two agree; the host traceback counts neither."""
+    problems = tp.run_problems(30, 300)
+    eng = BswEngine(CPU)
+    assert eng.util["walk_steps"] == eng.util["walk_iters"] == 0
+    got = eng.align_many(problems)
+    assert eng.util["walk_steps"] == sum(g.length for g in got) > 0
+    assert eng.util["walk_iters"] == eng.util["walk_steps"]
+    host = BswEngine(CPU, traceback="host")
+    host.align_many(problems)
+    assert host.util["walk_steps"] == host.util["walk_iters"] == 0
+
+
+def test_walk_steps_per_iter_metric_reads_the_engine_util():
+    """gpubench's walk_steps_per_iter.align reads the window's util: None
+    where the engine counts no iterations (an engine without the counter,
+    or no walk), else steps over iterations."""
+    import importlib.util
+    import os
+    from types import SimpleNamespace
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "gpubench", "metrics",
+                        "walk_steps_per_iter.align.py")
+    spec = importlib.util.spec_from_file_location("walk_steps_metric", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    old = {"live": 5, "batch": 8, "rows_live": 40, "rows_padded": 64}
+    assert mod.read(SimpleNamespace(util=old)) is None
+    assert mod.read(SimpleNamespace(util={**old, "walk_steps": 0,
+                                          "walk_iters": 0})) is None
+    assert mod.read(SimpleNamespace(util={**old, "walk_steps": 4000,
+                                          "walk_iters": 16})) == 250.0
+
+
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
 def test_engine_edge_cases_band30(fetch):
     """force_end underflow windows (x_size <= 10 -> null alignment),
@@ -315,7 +352,8 @@ def test_find_max_and_walk_match_reference(band):
     lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
     summary, edits = walk(dirs, a, b, ba, ea, xs, fe, last_row, diag, band,
                           lmax, True)
-    assert summary.shape == (13, len(mi)) and edits.shape == (len(mi), lmax)
+    assert summary.shape == (14, len(mi)) and edits.shape == (len(mi), lmax)
+    assert torch.equal(summary[ITERS], summary[2])  # a step an iteration
     for k, p in enumerate(preps):
         sw = fill_matrix(p.a, p.begin_a, p.b, p.begin_b, p.x_size, band,
                          p.force_start)

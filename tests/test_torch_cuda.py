@@ -34,7 +34,15 @@ from gam_ngs_tpu_torch.ops.bsw_row import (
     forward_row,
     forward_row_torch,
 )
-from gam_ngs_tpu_torch.ops.bsw_walk import ROW, walk, walk_torch
+from gam_ngs_tpu_torch.ops.bsw_walk import (
+    ANSWER_ROWS,
+    ANTIDIAG,
+    ITERS,
+    ROW,
+    WIDE_RING_BAND,
+    walk,
+    walk_torch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +53,18 @@ def dev():
         pytest.skip("no CUDA GPU: the CUDA kernels cannot run here (their "
                     "plain versions are tested in test_torch_bsw.py)")
     return torch.device("cuda")
+
+
+def same_walk(got, want) -> bool:
+    """The kernel's walk (summary, edits) against the plain version's:
+    the answer rows and the edit codes bit for bit, and its iterations
+    between 1 and its steps where it stepped."""
+    iters, cnt = got[0][ITERS], got[0][2]
+    return (torch.equal(got[0][:ANSWER_ROWS], want[0][:ANSWER_ROWS])
+            and bool((iters <= cnt).all())
+            and bool(((iters > 0) == (cnt > 0)).all())
+            and (got[1] is None) == (want[1] is None)
+            and (got[1] is None or torch.equal(got[1], want[1])))
 
 
 def _inputs(problems, band, dev):
@@ -107,10 +127,8 @@ def test_kernels_match_plain(dev, name):
                    edits)
         want = walk_torch(dirs, a, b, ba, ea, xs, fe, last_row, diag, band,
                           lmax, edits)
-        assert torch.equal(got[0], want[0])
+        assert same_walk(got, want)
         assert (got[1] is None) == (not edits)
-        if edits:
-            assert torch.equal(got[1], want[1])
     torch.cuda.synchronize()
     assert (bsw_antidiag.launches, bsw_walk.launches) == (n0[0] + 1,
                                                           n0[1] + 2)
@@ -133,9 +151,7 @@ def test_row_kernel_and_row_walk_match_plain(dev, name):
                 edits)
         got = walk(*args, layout=ROW)
         want = walk_torch(*args, layout=ROW)
-        assert torch.equal(got[0], want[0])
-        if edits:
-            assert torch.equal(got[1], want[1])
+        assert same_walk(got, want)
     torch.cuda.synchronize()
     assert (bsw_row.launches, bsw_walk.launches) == (n0[0] + 1, n0[1] + 2)
 
@@ -156,9 +172,47 @@ def test_kernels_take_any_batch(dev, B):
             assert k.shape[0] == B and torch.equal(k, p)
         wargs = (got[0], a, b, ba, ea, xs, fe, got[1], got[2], 150, lmax,
                  True)
-        for k, p in zip(walk(*wargs, layout=layout),
-                        walk_torch(*wargs, layout=layout)):
-            assert torch.equal(k, p)
+        assert same_walk(walk(*wargs, layout=layout),
+                         walk_torch(*wargs, layout=layout))
+
+
+@pytest.mark.parametrize("layout,band", [
+    (ANTIDIAG, 30), (ANTIDIAG, 150), (ANTIDIAG, 1023), (ROW, 30),
+    (ROW, 150), (ROW, WIDE_RING_BAND - 1), (ROW, WIDE_RING_BAND),
+    (ROW, 2047), (ROW, 4095)])
+def test_walk_runs_match_plain(dev, layout, band):
+    """Near-identical windows (tp.run_problems: the walk's diagonal runs,
+    cut by indels at word rows' and lookaheads' edges, by row 0, by the
+    band's lower edge and by lmax) over the kernel forward's words, with
+    and without edit codes and with lmax cut to 1001: the kernel's walk
+    equals the plain version's, where its lookahead's loads land late
+    and its ring's copies too."""
+    rows = 4000 if band <= WIDE_RING_BAND else 1500
+    (a, b, ba, ea, al, xs, fs, fe), xw = _inputs(
+        tp.run_problems(band, rows), band, dev)
+    fwd = forward_row if layout == ROW else forward_antidiag
+    dirs, last_row, diag = fwd(a, b, ba, ea, al, xs, fs, band)
+    full = -(-(2 * xw + 2 * band + 8) // 4) * 4
+    for edits, lmax in ((False, full), (True, full), (True, 1001)):
+        args = (dirs, a, b, ba, ea, xs, fe, last_row, diag, band, lmax,
+                edits)
+        got = walk(*args, layout=layout)
+        assert same_walk(got, walk_torch(*args, layout=layout)), (edits,
+                                                                  lmax)
+    assert int(got[0][ITERS].sum()) * 10 < int(got[0][2].sum())
+
+
+@pytest.mark.parametrize("kernel", ["auto", "row"])
+def test_engine_counts_walk_iterations(dev, kernel):
+    """On near-identical windows the engine's walk_iters fall far below
+    its walk_steps (the kernel takes a diagonal run an iteration), and
+    its answers equal bsw_align's."""
+    problems = tp.run_problems(150, 3000)
+    eng = BswEngine(dev, kernel=kernel)
+    got = eng.align_many(problems)
+    for k, (g, w) in enumerate(zip(got, tp.oracle(problems, 150))):
+        assert tp.same_alignment(g, w), k
+    assert 0 < 10 * eng.util["walk_iters"] < eng.util["walk_steps"]
 
 
 def test_engine_chunks_in_flight_match_bsw_align(dev):

@@ -37,7 +37,9 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (
 from gam_ngs_tpu_torch.ops.bsw_ref import FORCE_MAXGAP_LEN
 from gam_ngs_tpu_torch.ops.bsw_row import MAX_BAND, forward_row_torch
 from gam_ngs_tpu_torch.ops.bsw_walk import (
+    ANSWER_ROWS,
     ANTIDIAG,
+    ITERS,
     ROW,
     WIDE_RING_BAND,
     walk_torch,
@@ -99,9 +101,18 @@ _FORWARDS = {ANTIDIAG: forward_antidiag_torch, ROW: forward_row_torch}
 # problem sets: tp.ragged_problems(band) (x_size 1 to the window, begin_a
 # < 0 tails, N, force_start and force_end), the band-30 edge cases and
 # the find-max ties
+# the band-30 edge cases, the find-max ties, and the near-identical
+# windows of tp.run_problems (4000 rows, 1500 past band 1024, where the
+# plain row forward takes ~7 s a thousand rows)
 _SETS = {"ragged": tp.ragged_problems, "edges": lambda _b: tp.edge_problems(),
-         "ties": lambda _b: tp.tie_problems()}
+         "ties": lambda _b: tp.tie_problems(),
+         "runs": lambda b: tp.run_problems(b, run_rows(b))}
 _cases: dict = {}
+_plain: dict = {}
+
+
+def run_rows(band):
+    return 4000 if band <= WIDE_RING_BAND else 1500
 
 
 def walk_case(name, band, layout):
@@ -122,21 +133,24 @@ def lmax_of(xw, band):
     return -(-(2 * xw + 2 * band + 8) // 4) * 4
 
 
-def run_emulated(lib, case, band, layout, with_edits, shift=0):
+def run_emulated(lib, case, band, layout, with_edits, shift=0, lmax=None):
     """The emulated kernel's (summary, edits) over the case's words, the
     words placed `shift` int32 past a 16-byte boundary of a buffer padded
-    by 4 words on each side."""
+    by 4 words on each side; `lmax` steps at most (default: the engine's
+    bound, which no walk reaches)."""
     a_pk, b_pk, scal, (dirs, last_row, diag), xw = case
     B = a_pk.shape[0]
-    lmax = lmax_of(xw, band)
+    lmax = lmax or lmax_of(xw, band)
     buf = np.zeros(dirs.size + 8 + shift, np.int32)
     assert buf.ctypes.data % 16 == 0
     buf[4 + shift:4 + shift + dirs.size] = dirs.ravel()
     ins = [np.ascontiguousarray(v) for v in (a_pk, b_pk, scal[0], scal[1],
                                              scal[3], scal[5], last_row,
                                              diag)]
-    summary = np.full((13, B), -7, np.int32)
-    edits = np.zeros((B, lmax), np.uint8) if with_edits else None
+    summary = np.full((ANSWER_ROWS + 1, B), -7, np.int32)
+    # room past the last row for a broken source's overrun
+    edits = (np.zeros(B * lmax + lmax_of(xw, band), np.uint8)[:B * lmax]
+             .reshape(B, lmax) if with_edits else None)
     err = lib.bsw_walk(buf.ctypes.data + 4 * (4 + shift),
                        *(v.ctypes.data for v in ins), B, 2 * a_pk.shape[1],
                        xw, band, dirs.shape[1], lmax, FORCE_MAXGAP_LEN,
@@ -146,21 +160,31 @@ def run_emulated(lib, case, band, layout, with_edits, shift=0):
     return summary, edits
 
 
-def plain_walk(case, band, layout, with_edits):
-    a_pk, b_pk, scal, (dirs, last_row, diag), xw = case
-    t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
-    summary, edits = walk_torch(t(dirs), t(a_pk), t(b_pk), t(scal[0]),
-                                t(scal[1]), t(scal[3]), t(scal[5]),
-                                t(last_row), t(diag), band,
-                                lmax_of(xw, band), with_edits, layout)
-    return summary.numpy(), None if edits is None else edits.numpy()
+def plain_walk(case, band, layout, with_edits, lmax=None):
+    """walk_torch's (summary, edits) over the case; cached."""
+    key = (id(case), band, layout, with_edits, lmax)
+    if key not in _plain:
+        a_pk, b_pk, scal, (dirs, last_row, diag), xw = case
+        t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
+        summary, edits = walk_torch(t(dirs), t(a_pk), t(b_pk), t(scal[0]),
+                                    t(scal[1]), t(scal[3]), t(scal[5]),
+                                    t(last_row), t(diag), band,
+                                    lmax or lmax_of(xw, band), with_edits,
+                                    layout)
+        _plain[key] = (summary.numpy(),
+                       None if edits is None else edits.numpy())
+    return _plain[key]
 
 
 def emulated_matches_plain(lib, case, band, layout, with_edits,
-                           shift=0) -> bool:
-    got = run_emulated(lib, case, band, layout, with_edits, shift)
-    want = plain_walk(case, band, layout, with_edits)
-    return (np.array_equal(got[0], want[0])
+                           shift=0, lmax=None) -> bool:
+    """The answer rows and edit codes equal the plain version's, and the
+    kernel's iterations lie between 1 and the steps where it walked."""
+    got = run_emulated(lib, case, band, layout, with_edits, shift, lmax)
+    want = plain_walk(case, band, layout, with_edits, lmax)
+    iters, cnt = got[0][ITERS], want[0][2]
+    return (np.array_equal(got[0][:ANSWER_ROWS], want[0][:ANSWER_ROWS])
+            and (iters <= cnt).all() and ((iters > 0) == (cnt > 0)).all()
             and (got[1] is None) == (want[1] is None)
             and (got[1] is None or np.array_equal(got[1], want[1])))
 
@@ -199,6 +223,42 @@ def test_walk_kernel_source_edges_and_ties(walk_emulated, layout, band):
                                       layout, True), name
 
 
+# a cut that ends the long windows' walks inside a diagonal run
+RUN_LMAX = 1001
+
+
+@pytest.mark.parametrize("layout,band", CASES)
+def test_walk_kernel_source_takes_runs(walk_emulated, layout, band):
+    """Near-identical windows (tp.run_problems: substitutions, N on both
+    sides, 1-3 bp indels at random rows, at word rows' edges and at a
+    lookahead's edges; walks that end at row 0, at the band's lower edge
+    and at lmax), with and without edit codes, and with lmax cut to
+    RUN_LMAX: bit for bit the plain version, on both rings.  In layout 0
+    the walk over the substitution-only pair of 4000 rows takes a
+    lookahead of 32 word rows (256 steps) an iteration."""
+    case = walk_case("runs", band, layout)
+    for with_edits, lmax in ((False, None), (True, None), (True, RUN_LMAX)):
+        assert emulated_matches_plain(walk_emulated, case, band, layout,
+                                      with_edits, lmax=lmax), (with_edits,
+                                                               lmax)
+    summary = run_emulated(walk_emulated, case, band, layout, False)[0]
+    assert summary[2, 0] == run_rows(band)  # from the end to row 0
+    if layout == ANTIDIAG:
+        assert summary[ITERS, 0] <= -(-run_rows(band) // 256) + 8
+    assert summary[ITERS].sum() * 10 < summary[2].sum()
+
+
+def test_walk_kernel_source_iterations_on_ragged(walk_emulated):
+    """On the ragged bucket's random and mutated pairs the kernel takes at
+    most one iteration a step, and at least one where the walk steps."""
+    for layout in (ANTIDIAG, ROW):
+        case = walk_case("ragged", 150, layout)
+        summary = run_emulated(walk_emulated, case, 150, layout, False)[0]
+        iters, cnt = summary[ITERS], summary[2]
+        assert (iters <= cnt).all() and ((iters > 0) == (cnt > 0)).all()
+        assert cnt.sum() > 0
+
+
 def test_launcher_ring_fits_every_band_the_wrapper_takes(walk_emulated):
     """The launcher's plan (bsw_walk_ring) at every band of each layout
     up to the wrapper's bound: 16 rows of the words, then from
@@ -224,7 +284,8 @@ def test_launcher_ring_fits_every_band_the_wrapper_takes(walk_emulated):
     assert m and int(m.group(1)) == WIDE_RING_BAND
 
 
-# (old text, new text): each breaks the staging of the word rows
+# (old text, new text): the first three break the staging of the word
+# rows, the last three the diagonal runs
 MUTATIONS = {
     "ring_slot_one_row_off": (
         "const uint32_t* p = rows + (int)((unsigned)v % kRows) * SW;",
@@ -234,7 +295,19 @@ MUTATIONS = {
     "span_without_its_phase": (
         "reinterpret_cast<const uint4*>(src - ph);",
         "reinterpret_cast<const uint4*>(src);"),
+    "run_without_its_lmax_clip": (
+        "min(min(lmax - s, x + 1), ba + x + y - band + 1)",
+        "min(x + 1, ba + x + y - band + 1)"),
+    "run_without_n_as_a_match": (
+        "zero_nibbles(va ^ vb) | zero_nibbles(va ^ 0x44444444u) |\n"
+        "                    zero_nibbles(vb ^ 0x44444444u)",
+        "zero_nibbles(va ^ vb)"),
+    "run_settled_one_step_short": (
+        "settle_run(cur, y, L, tl, ed, s, tid);",
+        "settle_run(cur, y, L - 1, tl, ed, s, tid);"),
 }
+RUN_MUTATIONS = ("run_settled_one_step_short", "run_without_its_lmax_clip",
+                 "run_without_n_as_a_match")
 
 
 @pytest.fixture(scope="module")
@@ -250,10 +323,13 @@ def mutants(tmp_path_factory):
     return out
 
 
+STAGING_MUTATIONS = sorted(set(MUTATIONS) - set(RUN_MUTATIONS))
+
+
 @pytest.mark.parametrize("mutation,layout,band", [
-    (m, ROW, b) for m in sorted(MUTATIONS)
+    (m, ROW, b) for m in STAGING_MUTATIONS
     for b in (WIDE_RING_BAND - 1, WIDE_RING_BAND)]
-    + [(m, ANTIDIAG, 150) for m in sorted(MUTATIONS)])
+    + [(m, ANTIDIAG, 150) for m in STAGING_MUTATIONS])
 def test_walk_kernel_source_mutation_fails(mutants, mutation, layout, band):
     """A broken ring slot or prefetch gives other outputs than the plain
     version on either ring; a 16-byte span copied without its phase only
@@ -263,3 +339,17 @@ def test_walk_kernel_source_mutation_fails(mutants, mutation, layout, band):
     ok = emulated_matches_plain(mutants[mutation], case, band, layout, True)
     wide = layout == ROW and band >= WIDE_RING_BAND
     assert ok == (mutation == "span_without_its_phase" and not wide)
+
+
+@pytest.mark.parametrize("mutation,layout,band", [
+    (m, layout, band) for m in RUN_MUTATIONS
+    for layout, band in ((ANTIDIAG, 150), (ROW, 150), (ROW, WIDE_RING_BAND))])
+def test_walk_kernel_source_run_mutation_fails(mutants, mutation, layout,
+                                               band):
+    """A run that overruns lmax, that counts N as a mismatch, or that
+    settles one step fewer than it walks gives other outputs than the
+    plain version on the near-identical windows (the clip with lmax cut
+    to RUN_LMAX), in both layouts and on both rings."""
+    case = walk_case("runs", band, layout)
+    assert not emulated_matches_plain(mutants[mutation], case, band, layout,
+                                      True, lmax=RUN_LMAX)

@@ -189,6 +189,81 @@ def tie_problems(seed: int = 17):
     return problems
 
 
+def _edit(rng, a, band: int, n: int, sub: float, indels=(), n_rate=0.0):
+    """b for a window of n rows over a (a[band:] aligned to b[0:]) with
+    substitutions at rate `sub`, N codes at `n_rate` on either side (a is
+    changed in place), and an indel of (x, length, insert) at each b
+    position x: insert puts `length` random codes into b there, else
+    `length` codes of a are skipped."""
+    src = a[band:].copy()
+    a[band:][rng.random(len(src)) < n_rate / 2] = 4
+    out, i = [], 0
+    for x, length, insert in sorted(indels):
+        while len(out) < x and i < len(src):
+            out.append(src[i])
+            i += 1
+        if insert:
+            out.extend(rng.integers(0, 4, length))
+        else:
+            i += length
+    out.extend(src[i:i + max(n - len(out), 0)])
+    b = np.array(out[:n], np.uint8)
+    flip = rng.random(n) < sub
+    b[flip] = (b[flip] + 1 + rng.integers(0, 3, flip.sum())) % 4
+    b[rng.random(n) < n_rate / 2] = 4
+    return b
+
+
+def run_problems(band: int, rows: int = 4000, seed: int = 41):
+    """Near-identical windows, the traffic of block windows, where the
+    walk is one long diagonal run broken by few indels: eight problems
+    of up to `rows` rows (seven below band 12).  The first pair has substitutions only (the
+    walk runs from the end to row 0); then substitutions with N codes on
+    both sides and 1-3 bp indels at random rows; 1-3 bp indels at rows
+    15-17 below the end, 8 and 16 apart (word rows' edges in both
+    layouts) and 247-257 and 503-513 below (the edges of a lookahead of
+    32 word rows); a window whose walk leaves through the band's lower
+    edge (begin_a + x + y - band < 0 with x > 0); an end-forced and a
+    start-forced window; and windows of 17 and 300 rows."""
+    rng = np.random.default_rng(seed + band)
+    problems = []
+
+    def window(n, **kw):
+        a = rng.integers(0, 4, size=n + 2 * band).astype(np.uint8)
+        b = _edit(rng, a, band, n, **kw)
+        return a, b
+
+    a, b = window(rows, sub=0.005)
+    problems.append((a, band, len(a) - 1, b, 0, rows - 1, False, False))
+    cuts = sorted(rng.choice(np.arange(20, rows - 20), 12, replace=False))
+    a, b = window(rows, sub=0.01, n_rate=0.01,
+                  indels=[(int(x), 1 + k % 3, k % 2 == 0)
+                          for k, x in enumerate(cuts)])
+    problems.append((a, band, len(a) - 1, b, 0, rows - 1, False, False))
+    near = [15, 16, 17, 40, 48, 64, 247, 248, 255, 256, 257, 503, 504,
+            511, 512, 513, 1030, 1536, 2050]
+    a, b = window(rows, sub=0.005,
+                  indels=[(rows - 1 - d - 4 * k, 1 + k % 3, k % 2 == 1)
+                          for k, d in enumerate(near) if d + 4 * k < rows])
+    problems.append((a, band, len(a) - 1, b, 0, rows - 1, False, False))
+    # b[x] = a[x - 5] and begin_a = min(7, band): the walk's diagonal is
+    # y = band - begin_a - 5, and a's position 0 comes at x = 5
+    n = 3 * rows // 4
+    ba, j = min(7, band), 5
+    a = rng.integers(0, 4, size=n + 2 * band).astype(np.uint8)
+    b = np.concatenate([rng.integers(0, 4, j).astype(np.uint8),
+                        a[:n - j]])
+    if band - ba - j >= 0:
+        problems.append((a, ba, len(a) - 1, b, 0, n - 1, False, False))
+    for fs, fe in ((False, True), (True, False)):
+        a, b = window(700, sub=0.01, indels=[(350, 2, fe)])
+        problems.append((a, band, len(a) - 1, b, 0, 699, fs, fe))
+    for n in (17, 300):
+        a, b = window(n, sub=0.01, indels=[(n // 2, 3, False)])
+        problems.append((a, band, len(a) - 1, b, 0, n - 1, False, False))
+    return problems
+
+
 def pack_problems(problems, band: int):
     """One bucket of the port's engine layout: (a_pk, b_pk, scal, preps,
     xw), scal = (6, B) int32 rows begin_a, end_a, a_len, x_size,

@@ -36,9 +36,13 @@ and multiple, and this tree's instance (C, W, R) at the band.
 bsw_walk.cu (same C entry point).  Both walks run, without edit codes,
 over this tree's forward words of B=64 problems in windows XW 4096: the
 anti-diagonal forward's at band 150 and the row forward's at band 150
-and at each band of --bands (default 1023), timed base, this, this,
-base, their summaries held equal; each time with its ns a step (the
-longest walk's steps), bound and multiple, and this tree's ring (rows,
+and at each band of --bands (default 1023), each on two kinds of pairs:
+"random", the mutated copies above (3% substitutions, 1.2% insertions,
+1.2% deletions), and "near", near-identical copies (0.1 substitutions
+and 0.02 indels a kbp, as block windows), timed base, this, this,
+base, their summaries' answer rows held equal; each time with its ns a
+step (the longest walk's steps), bound and multiple, this tree's
+iterations over its steps (all problems), and this tree's ring (rows,
 warps a block, shared memory a block).  A band the other version's
 launcher refuses is timed for this tree's alone.
 
@@ -103,6 +107,7 @@ from gam_ngs_tpu_torch.ops.bsw_antidiag import (  # noqa: E402
     antidiag_dims,
 )
 from gam_ngs_tpu_torch.ops.bsw_ref import FORCE_MAXGAP_LEN, GAP  # noqa: E402
+from gam_ngs_tpu_torch.ops.bsw_walk import ANSWER_ROWS, ITERS  # noqa: E402
 
 BAND = 150
 DEV = torch.device("cuda")
@@ -134,14 +139,18 @@ def entry_points(lib):
     return fwd, wlk
 
 
+# tp.mutate's rates: "random" pairs; "near" ones, as block windows
+PAIRS = {"random": {}, "near": {"sub": 1e-4, "ins": 1e-5, "dele": 1e-5}}
+
+
 def problems(xw: int, B: int = 64, seed: int = 11, fixed: int = 0,
-             band: int = BAND):
+             band: int = BAND, pairs: str = "random"):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(B):
         n = fixed or int(rng.integers(int(0.8 * xw), xw))
         a = rng.integers(0, 4, size=n + 2 * band).astype(np.uint8)
-        b = tp.mutate(rng, a[band:band + n])
+        b = tp.mutate(rng, a[band:band + n], **PAIRS[pairs])
         b = np.concatenate([b, rng.integers(0, 4, n).astype(np.uint8)])[:n]
         out.append((a, band, len(a) - 1, b, 0, n - 1, False, False))
     return out
@@ -177,7 +186,8 @@ class Shape:
 
     def walk(self, fn, fwd_out):
         dirs, lr, dg = fwd_out
-        summary = torch.empty((13, self.B), dtype=torch.int32, device=DEV)
+        summary = torch.empty((ANSWER_ROWS + 1, self.B), dtype=torch.int32,
+                              device=DEV)
         err = fn(*(v.data_ptr() for v in (dirs, self.a, self.b, self.ba,
                                           self.ea, self.xs, self.fe, lr,
                                           dg)),
@@ -270,17 +280,20 @@ def walk_ab(base_dir: str, reps: int, card: str, ops_rate: float,
         base = lib.bsw_walk
         base.argtypes, base.restype = this.argtypes, this.restype
         res = {"card": card, "shapes": {}}
-        for layout, band in ((bsw_walk.ANTIDIAG, BAND), (bsw_walk.ROW, BAND),
-                             *((bsw_walk.ROW, b) for b in bands)):
-            sh = Shape(problems(xw, band=band), band)
+        for layout, band, pairs in (
+                (layout, band, pairs) for layout, band in (
+                    (bsw_walk.ANTIDIAG, BAND), (bsw_walk.ROW, BAND),
+                    *((bsw_walk.ROW, b) for b in bands))
+                for pairs in PAIRS):
+            sh = Shape(problems(xw, band=band, pairs=pairs), band)
             fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, band)
             fwd = forward_row if layout == bsw_walk.ROW else forward_antidiag
             dirs, lr, dg = fwd(*fargs)
             lmax = -(-(2 * xw + 2 * band + 8) // 4) * 4
 
             def run(fn):
-                summary = torch.empty((13, sh.B), dtype=torch.int32,
-                                      device=DEV)
+                summary = torch.empty((ANSWER_ROWS + 1, sh.B),
+                                      dtype=torch.int32, device=DEV)
                 err = fn(*(v.data_ptr() for v in (dirs, sh.a, sh.b, sh.ba,
                                                   sh.ea, sh.xs, sh.fe, lr,
                                                   dg)),
@@ -300,12 +313,14 @@ def walk_ab(base_dir: str, reps: int, card: str, ops_rate: float,
                 print(f"[ab] {card} | layout={layout} band={band}: the base "
                       f"walk's launcher refuses it ({e})", flush=True)
             torch.cuda.synchronize()
-            if "base" in fns and not torch.equal(got, want):
+            if "base" in fns and not torch.equal(got[:ANSWER_ROWS],
+                                                 want[:ANSWER_ROWS]):
                 raise AssertionError(f"layout {layout} band {band}: the "
                                      f"walks disagree")
             b_ms, b_by = chip_smoke.bound("bsw_walk", fargs, sh.fe,
                                           (want, None, lr, dg), ops_rate)
             n = int(want[2].max())
+            iters, steps = int(want[ITERS].sum()), int(want[2].sum())
             rows, _slot, _code, warps, shmem = bsw_walk.ring_info(band,
                                                                   layout)
             ms: dict = {}
@@ -315,15 +330,17 @@ def walk_ab(base_dir: str, reps: int, card: str, ops_rate: float,
                         launch_ms(lambda: run(fns[turn]), reps))
             for turn, v in ms.items():
                 print(f"[ab] {card} | B={sh.B} layout={layout} band={band} "
-                      f"XW={xw} bsw_walk_{turn}: ms "
+                      f"XW={xw} {pairs} pairs bsw_walk_{turn}: ms "
                       f"{', '.join(f'{t:.4f}' for t in v)}; "
                       f"{statistics.mean(v) * 1e6 / n:.1f} ns/step over {n} "
                       f"steps; bound {b_ms:.6f} ms ({b_by}), "
-                      f"{statistics.mean(v) / b_ms:.1f}x it; this: {rows}-row "
+                      f"{statistics.mean(v) / b_ms:.1f}x it; this: {iters} "
+                      f"iterations for {steps} steps, {rows}-row "
                       f"ring, {warps} warps and {shmem} B a block",
                       flush=True)
-            res["shapes"][f"layout{layout}_band{band}_xw{xw}"] = {
+            res["shapes"][f"layout{layout}_band{band}_xw{xw}_{pairs}"] = {
                 "ms": ms, "steps": n, "bound_ms": b_ms, "bound_by": b_by,
+                "iters": iters, "all_steps": steps,
                 "ring": [rows, warps, shmem]}
     return res
 
@@ -607,7 +624,8 @@ def main() -> int:
             sums = {v: sh.walk(fns[1], outs[v]) for v, fns in
                     (("base", base), ("this", this))}
             torch.cuda.synchronize()
-            if not torch.equal(sums["base"], sums["this"]) or \
+            if not torch.equal(sums["base"][:ANSWER_ROWS],
+                               sums["this"][:ANSWER_ROWS]) or \
                     not torch.equal(outs["base"][1], outs["this"][1]):
                 raise AssertionError(f"XW {xw}: the versions disagree")
             fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, BAND)
