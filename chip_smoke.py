@@ -11,7 +11,9 @@ Phases (all by default; any failure raises and exits non-zero):
           instances), and the most clusters of each row instance the
           card runs at once (cudaOccupancyMaxActiveClusters)
   parity  each kernel against its plain PyTorch version on the card,
-          bit for bit (256-problem soak at band 150, band-30 edge cases,
+          bit for bit (256-problem soak at band 150, the anti-diagonal
+          forward's split instance, and the soak tiled to the least batch
+          at which it takes one warp a problem, band-30 edge cases,
           band 300, ragged buckets of x_size 1 to the window at bands 30
           and 300, find-max ties at bands 30 and 150, band 700 with four
           warps per problem (the row forward: sixteen warps of three
@@ -494,8 +496,18 @@ def phase_arena_parity(res):
             raise AssertionError(f"{label}: two shards != one device")
 
 
+def one_warp_batch(band: int) -> int:
+    """The least batch at which the anti-diagonal forward's launcher takes
+    one warp a problem at `band` (below 160) on this card."""
+    return next(B for B in range(1, 1 << 16)
+                if bsw_antidiag.instance(band, B)[0] == 1)
+
+
 def phase_parity(res):
-    sets = [("soak256_band150", tp.soak_problems(256), 150),
+    soak = tp.soak_problems(256)
+    big = one_warp_batch(150)
+    sets = [("soak256_band150", soak, 150),
+            (f"soak{big}_band150", (soak * -(-big // 256))[:big], 150),
             ("edges_band30", tp.edge_problems(), 30),
             ("soak32_band300", tp.soak_problems(32, seed=7, max_len=700),
              300),

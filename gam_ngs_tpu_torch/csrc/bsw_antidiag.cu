@@ -15,10 +15,13 @@
 // Lanes -1 and K = band+1 read as 0 (lane -1 is only read by lane 0 at
 // even steps, where j = 0 ignores it).
 //
-// Design: W warps per problem (W = 1 up to band 511), kWarps / W
-// problems per block.  Each thread holds R consecutive lanes in
-// registers, R = ceil((band+1)/32) rounded up to an instantiated width
-// (5 at band 150); the P = 32WR - K padding lanes sit below lane 0, so
+// Design: W warps per problem, kWarps / W problems per block: one warp
+// (W = 1) below band 64, and up to band 159 where the launch fills the
+// card; several (the split instance, below) where it leaves the card's
+// schedulers empty, and at every batch from band 160.  Each thread holds
+// R consecutive lanes in registers, R = ceil((band+1)/32) rounded up to
+// an instantiated width at W = 1 (5 at band 150); the P = 32WR - K
+// padding lanes sit below lane 0, so
 // lane K-1 is the last register of the problem's last thread.  A step's
 // only cross-thread reads are one shuffle: the top lane of thread g-1
 // (left, even steps) or the bottom lane of thread g+1 (up, odd steps; 0
@@ -30,6 +33,22 @@
 // barrier, one bar.sync a step.  Padding lanes compute values nobody
 // reads except lane 0's left at even steps, which the j = 0 rule
 // discards.
+//
+// The split instance (HALO; W = 4 at bands 64-511) spreads one
+// problem's K lanes over W warps without a barrier in the step loop.
+// Warp v holds a window of 32R lanes: its strip of owned lanes and
+// kHalo = 8 lanes on each side of it that a neighbouring warp owns (the
+// last warp's window ends at lane K-1, as above; warp 0 owns down to its
+// window's first lane, the padding below lane 0).  A lane reads lane k-1
+// only at even steps and lane k+1 only at odd ones, so the values that
+// the window's edges read wrong (a shuffle past its warp) move at most 8
+// lanes inward in a 16-step block: the owned strip stays exact.  After
+// each block the warps swap p1 and p2 of their 8 lowest and 8 highest
+// owned lanes through shared memory under the problem's named barrier,
+// which makes the halos exact again.  Only owned lanes write direction
+// words and records.  With R lanes a thread the strip is 32R - 16
+// lanes (32R - 8 at the two ends), so W = 4 runs band 150 at R = 2
+// where one warp takes R = 5.
 //
 // The steps run in blocks of 16, one direction word per lane, unrolled.
 // In the lean body the band edges cost nothing per lane: lane 0's left
@@ -86,6 +105,7 @@ constexpr int kRingTiles = 8;      // tiles g-1 .. g+3 live during stage g
 constexpr int kRingWords = kTileWords * kRingTiles;
 constexpr int kRingMask = kRingWords - 1;
 constexpr int kStageBlocks = kTileWords;  // 16-step blocks per tile of a
+constexpr int kHalo = 8;  // halo lanes a side of the split instance's strips
 
 // bsw_ref's scoring, passed in by the wrapper: SCORING_MATRIX's match,
 // mismatch, N-N and N-other scores, GAP and FORCE_MAXGAP_LEN
@@ -100,6 +120,9 @@ __device__ __forceinline__ int base_score(int ac, int bc, const Scoring& s) {
   return ac == bc ? s.match : s.mismatch;
 }
 
+#ifdef __CUDACC__
+// cp.async and named barriers (tests/cuda_emu/cuda_runtime.h defines the
+// host's stand-ins)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -119,6 +142,7 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+#endif
 
 // One lane's 16 bytes of tile g of a packed row of nw words: copied when
 // inside the row, `fill` otherwise (rows are whole 16-byte chunks).
@@ -151,12 +175,19 @@ struct Lanes {
   int lg_even[R];     // left gap at even steps (kNeg on lane 0)
   int lo;             // lowest score: a score is lo + its 6-bit field
   int ba, band, al, xs1, jdb, YS, steps;
+  int own_lo, own_hi;  // the split instance: lanes [own_lo, own_hi) owned
   bool fs;
 };
 
 // Swap slots of the warps of a block (W > 1): [warp][step parity], the
 // top lane of thread 31 at even steps, the bottom lane of thread 0 at odd.
 __shared__ int xch_s[kWarps][2];
+
+// Halo slots of the split instance: [block parity][warp][low or high
+// side][lane][p1, p2], the warp's 8 lowest and 8 highest owned lanes.
+// Two sets in turn, so a warp that runs ahead writes the next block's
+// while its neighbour still reads this block's.
+__shared__ int halo_s[2][kWarps][2][kHalo][2];
 
 // The lane beside the thread's lanes that a step reads: the top lane of
 // thread g-1 at even steps (left), the bottom lane of thread g+1 at odd
@@ -180,8 +211,19 @@ __device__ __forceinline__ int neighbour(const int (&p1)[R], int par,
   return nb;
 }
 
-// The last-row and pos == end_a cells among this step's lanes.
-template <int R>
+// Whether this warp writes lane k's words and records: every lane in
+// range, or the split instance's owned lanes.
+template <bool HALO, int R>
+__device__ __forceinline__ bool owned(const Lanes<R>& L, int k) {
+  if constexpr (HALO)
+    return k >= L.own_lo && k < L.own_hi;
+  else
+    return true;
+}
+
+// The last-row and pos == end_a cells among this step's lanes (the
+// split instance's owned lanes).
+template <int R, bool HALO>
 __device__ __forceinline__ void record_hits(const int (&row)[R],
                                             const Lanes<R>& L, int t,
                                             int* lr, int* dg) {
@@ -192,7 +234,8 @@ __device__ __forceinline__ void record_hits(const int (&row)[R],
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = par + 2 * (L.k0 + r);
-      if (r == dd && j >= 0 && j < L.YS) dg[j] = row[r];
+      if (r == dd && j >= 0 && j < L.YS && owned<HALO>(L, L.k0 + r))
+        dg[j] = row[r];
     }
   }
   const int ll = base - L.xs1 - L.k0;  // lane of the last-row cell
@@ -200,7 +243,8 @@ __device__ __forceinline__ void record_hits(const int (&row)[R],
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = par + 2 * (L.k0 + r);
-      if (r == ll && j >= 0 && j < L.YS) lr[j] = row[r];
+      if (r == ll && j >= 0 && j < L.YS && owned<HALO>(L, L.k0 + r))
+        lr[j] = row[r];
     }
   }
 }
@@ -208,7 +252,7 @@ __device__ __forceinline__ void record_hits(const int (&row)[R],
 // Lean steps t0 .. t0+15 (t0 a multiple of 16) of one problem, fully
 // unrolled.  p1/p2: the thread's lanes at steps t-1 and t-2; packed: this
 // block's words; va / bc6: the block's a score vectors and 6 * b codes.
-template <int R, int W, bool CHECK>
+template <int R, int W, bool HALO, bool CHECK>
 __device__ __forceinline__ void run_lean_block(
     int (&p1)[R], int (&p2)[R], unsigned (&packed)[R],
     const uint32_t (&va)[R + 8], const int (&bc6)[R + 7], const Lanes<R>& L,
@@ -216,7 +260,7 @@ __device__ __forceinline__ void run_lean_block(
 #pragma unroll
   for (int st = 0; st < 16; ++st) {
     const int par = st & 1;
-    const int nb = neighbour<R, W>(p1, par, L);
+    const int nb = neighbour<R, HALO ? 1 : W>(p1, par, L);
     int row[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -233,7 +277,7 @@ __device__ __forceinline__ void run_lean_block(
       packed[r] |= (unsigned)d << (2 * st);
       row[r] = rw;
     }
-    if (CHECK) record_hits(row, L, t0 + st, lr, dg);
+    if (CHECK) record_hits<R, HALO>(row, L, t0 + st, lr, dg);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       p2[r] = p1[r];
@@ -245,7 +289,7 @@ __device__ __forceinline__ void run_lean_block(
 // Exact steps t0 .. t0+15: every mask of the reference per lane, the
 // characters read from the rings per lane (these blocks are few: the
 // first exact_steps(band)/16, or every block when begin_a < 0).
-template <int R, int W>
+template <int R, int W, bool HALO>
 __device__ __forceinline__ void run_exact_block(
     int (&p1)[R], int (&p2)[R], unsigned (&packed)[R],
     const uint32_t* ring_a, const uint32_t* ring_b, const Lanes<R>& L,
@@ -256,7 +300,7 @@ __device__ __forceinline__ void run_exact_block(
 #pragma unroll
     for (int par = 0; par < 2; ++par) {
       const int t = t0 + st2 + par, base = t >> 1, chalf = base + par;
-      const int nb = neighbour<R, W>(p1, par, L);
+      const int nb = neighbour<R, HALO ? 1 : W>(p1, par, L);
       int row[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -299,7 +343,7 @@ __device__ __forceinline__ void run_exact_block(
         packed[r] |= (unsigned)d << (2 * (st2 + par));
         row[r] = rw;
       }
-      record_hits(row, L, t, lr, dg);
+      record_hits<R, HALO>(row, L, t, lr, dg);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         p2[r] = p1[r];
@@ -309,7 +353,46 @@ __device__ __forceinline__ void run_exact_block(
   }
 }
 
+// The split instance's swap after 16-step block n: each warp posts p1
+// and p2 of its 8 lowest and 8 highest owned lanes (window offsets
+// [8, 16) and [32R-16, 32R-8)), meets the problem's other warps at its
+// named barrier, and takes its halos (offsets [0, 8) and [32R-8, 32R))
+// from the warps below and above.
 template <int R, int W>
+__device__ __forceinline__ void swap_halo(int (&p1)[R], int (&p2)[R],
+                                          int n, int pw) {
+  constexpr int kTop = 32 * R - 2 * kHalo;  // the 8 highest owned offsets
+  const int tid = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int wsub = kWarps == W ? w : w % W;
+  int(*slot)[2][kHalo][2] = halo_s[n & 1];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int o = tid * R + r;
+    if ((unsigned)(o - kHalo) < (unsigned)kHalo) {
+      slot[w][0][o - kHalo][0] = p1[r];
+      slot[w][0][o - kHalo][1] = p2[r];
+    }
+    if ((unsigned)(o - kTop) < (unsigned)kHalo) {
+      slot[w][1][o - kTop][0] = p1[r];
+      slot[w][1][o - kTop][1] = p2[r];
+    }
+  }
+  bar_sync(1 + pw, 32 * W);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int o = tid * R + r;
+    if (wsub > 0 && o < kHalo) {
+      p1[r] = slot[w - 1][1][o][0];
+      p2[r] = slot[w - 1][1][o][1];
+    }
+    if (wsub < W - 1 && o >= 32 * R - kHalo) {
+      p1[r] = slot[w + 1][0][o - (32 * R - kHalo)][0];
+      p2[r] = slot[w + 1][0][o - (32 * R - kHalo)][1];
+    }
+  }
+}
+
+template <int R, int W, bool HALO>
 __global__ void __launch_bounds__(32 * kWarps) antidiag_forward_kernel(
     const uint8_t* __restrict__ a_pk, const uint8_t* __restrict__ b_pk,
     const int* __restrict__ begin_a, const int* __restrict__ end_a,
@@ -338,6 +421,14 @@ __global__ void __launch_bounds__(32 * kWarps) antidiag_forward_kernel(
   const bool last = g == 32 * W - 1;
   Lanes<R> L;
   L.k0 = g * R - P;
+  if constexpr (HALO) {
+    // warp wsub's window starts (W-1-wsub) strips of 32R - 16 lanes below
+    // the last warp's, which ends at lane K-1
+    const int base = K - 32 * R - (W - 1 - wsub) * (32 * R - 2 * kHalo);
+    L.k0 = base + tid * R;
+    L.own_lo = wsub == 0 ? 0 : max(0, base + kHalo);
+    L.own_hi = wsub == W - 1 ? K : base + 32 * R - kHalo;
+  }
   L.mtop = last ? 0 : ~0;
   L.ug_top = last ? kNeg : s.gap;
 #pragma unroll
@@ -414,8 +505,8 @@ __global__ void __launch_bounds__(32 * kWarps) antidiag_forward_kernel(
     for (int r = 0; r < R; ++r) packed[r] = 0;
     const int t0 = 16 * n;
     if (n < n_exact) {
-      run_exact_block<R, W>(p1, p2, packed, ring_a, ring_b, L, s, t0, lr,
-                            dg);
+      run_exact_block<R, W, HALO>(p1, p2, packed, ring_a, ring_b, L, s, t0,
+                                  lr, dg);
     } else {
       uint32_t va[NA];
       int bc6[NB];
@@ -445,10 +536,11 @@ __global__ void __launch_bounds__(32 * kWarps) antidiag_forward_kernel(
       const bool hit = (hd >= 0 && hd - 8 <= R - 1) ||
                        (hl + 7 >= 0 && hl <= R - 1);
       if (__any_sync(kFull, hit))
-        run_lean_block<R, W, true>(p1, p2, packed, va, bc6, L, s, t0, lr, dg);
+        run_lean_block<R, W, HALO, true>(p1, p2, packed, va, bc6, L, s, t0,
+                                         lr, dg);
       else
-        run_lean_block<R, W, false>(p1, p2, packed, va, bc6, L, s, t0, lr,
-                                    dg);
+        run_lean_block<R, W, HALO, false>(p1, p2, packed, va, bc6, L, s, t0,
+                                          lr, dg);
     }
     const int left_steps = L.steps - t0;  // steps of the block the problem runs
     if (left_steps < 16) {
@@ -458,13 +550,16 @@ __global__ void __launch_bounds__(32 * kWarps) antidiag_forward_kernel(
     }
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (L.k0 + r >= 0) dir_out[(size_t)n * K + L.k0 + r] = (int)packed[r];
+      if (L.k0 + r >= 0 && owned<HALO>(L, L.k0 + r))
+        dir_out[(size_t)n * K + L.k0 + r] = (int)packed[r];
+    if constexpr (HALO)
+      if (n + 1 < nblk) swap_halo<R, W>(p1, p2, n, pw);
   }
   for (int q = nblk * K + g; q < NP * K; q += 32 * W) dir_out[q] = 0;
   cp_async_wait<0>();
 }
 
-template <int R, int W>
+template <int R, int W, bool HALO>
 int launch(const void* a_pk, const void* b_pk, const void* begin_a,
            const void* end_a, const void* a_len, const void* x_size,
            const void* force_start, int B, int aw, int xw, int band, int T,
@@ -472,7 +567,7 @@ int launch(const void* a_pk, const void* b_pk, const void* begin_a,
            void* diag, cudaStream_t stream) {
   constexpr int per_block = kWarps / W;  // problems a block
   const int blocks = (B + per_block - 1) / per_block;
-  antidiag_forward_kernel<R, W><<<blocks, 32 * kWarps, 0, stream>>>(
+  antidiag_forward_kernel<R, W, HALO><<<blocks, 32 * kWarps, 0, stream>>>(
       (const uint8_t*)a_pk, (const uint8_t*)b_pk, (const int*)begin_a,
       (const int*)end_a, (const int*)a_len, (const int*)x_size,
       (const int*)force_start, B, aw, xw, band, T, NP, s, lo, (int*)dirs,
@@ -480,8 +575,120 @@ int launch(const void* a_pk, const void* b_pk, const void* begin_a,
   return (int)cudaGetLastError();
 }
 
+// An instance of the kernel: R lanes a thread, W warps a problem, and
+// whether it is the split instance (halo strips) or, for W = 4 above
+// band 511, the exchange a step.
+struct Instance {
+  int R, W;
+  bool halo;
+};
+
+// (R, W, halo) of every instance built: one warp (up to 160 lanes); the
+// split instance of four warps a problem; four warps a step apart.
+#define GAM_INSTANCES(X)                                                    \
+  X(1, 1, false) X(2, 1, false) X(5, 1, false)                              \
+  X(1, 4, true) X(2, 4, true) X(3, 4, true) X(4, 4, true) X(5, 4, true)     \
+  X(10, 4, false)
+
+// The lanes an instance covers: 32R a warp, less the split instance's
+// halos where its strips meet.
+constexpr int lanes_of(int R, int W, bool halo) {
+  return 32 * R * W - (halo ? 2 * kHalo * (W - 1) : 0);
+}
+
+// The narrowest instance built of W warps (halo or not) that covers K
+// lanes; R = 0 when none does.
+Instance narrowest(int K, int W, bool halo) {
+  Instance best{0, W, halo};
+#define GAM_FIT(RR, WW, HH)                                                 \
+  if (WW == W && HH == halo && lanes_of(RR, WW, HH) >= K &&                 \
+      (best.R == 0 || RR < best.R))                                         \
+    best.R = RR;
+  GAM_INSTANCES(GAM_FIT)
+#undef GAM_FIT
+  return best;
+}
+
+// The instance a launch of B problems at `band` takes on a card of
+// `sms` SMs.  One warp a problem leaves the card's schedulers empty on
+// small launches, where a problem's step chain on its lone warp sets the
+// time; the split instance of four warps cuts a thread's lanes, so its
+// chain, R1 = 5 -> R4 = 2 at band 150.  It pays where it takes at least
+// two lanes a thread off (R4 + 2 <= R1: from band 64) and the batch
+// leaves the card unfilled (B <= 2 SMs); elsewhere one warp a problem.
+// From band 160 (more lanes than one warp's R = 5 holds) the split runs
+// at every batch: one warp there (R 8-16) lost at every batch measured.
+// Bands 512-1023 take four warps a step apart.  The A/B behind it (ms a
+// launch, XW 4096, one warp / split; H100 SXM, 132 SMs, 700 W):
+//   band 150: B 1 0.706 / 0.414, 8 0.802 / 0.462, 16 0.799 / 0.464,
+//             32 0.808 / 0.468, 64 0.808 / 0.471, 128 0.808 / 0.460,
+//             256 0.799 / 0.671, 384 0.825 / 0.933, 512 0.823 / 1.174;
+//   band 63 (R 2 / 1): B 8 0.335 / 0.328, 64 0.348 / 0.347, 256 0.344 /
+//             0.420; band 30 (R 1 / 1): B 8 0.291 / 0.326;
+//   band 300: B 8 2.117 / 0.763, 256 2.336 / 1.130, 512 2.497 / 1.979;
+//   band 511: B 8 4.939 / 1.611, 256 5.505 / 2.351, 2048 13.637 / 10.625.
+Instance pick(int band, int B, int sms) {
+  const int K = band + 1;
+  if (K > 512) return {10, 4, false};
+  const Instance one = narrowest(K, 1, false);
+  const Instance split = narrowest(K, 4, true);
+  if (one.R == 0) return split;
+  return split.R + 2 <= one.R && B <= 2 * sms ? split : one;
+}
+
+// SMs of the current device (0 where the runtime cannot tell: then every
+// launch below band 160 takes one warp a problem).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+int launch_instance(const Instance& in, const void* a_pk, const void* b_pk,
+                    const void* begin_a, const void* end_a, const void* a_len,
+                    const void* x_size, const void* force_start, int B,
+                    int aw, int xw, int band, int T, int NP,
+                    const Scoring& s, int lo, void* dirs, void* last_row,
+                    void* diag, cudaStream_t stream) {
+#define GAM_LAUNCH(RR, WW, HH)                                              \
+  if (in.R == RR && in.W == WW && in.halo == HH)                            \
+    return launch<RR, WW, HH>(a_pk, b_pk, begin_a, end_a, a_len, x_size,   \
+                              force_start, B, aw, xw, band, T, NP, s, lo,   \
+                              dirs, last_row, diag, stream);
+  GAM_INSTANCES(GAM_LAUNCH)
+#undef GAM_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// The forward of B problems; taken (null or 3 ints) gets W, R and
+// whether the instance launched is the split one.
+extern "C" int bsw_antidiag_forward_taken(
+    const void* a_pk, const void* b_pk, const void* begin_a,
+    const void* end_a, const void* a_len, const void* x_size,
+    const void* force_start, int B, int aw, int xw, int band, int T, int NP,
+    int match, int mismatch, int nn, int nx, int gap, int force_max_gap,
+    void* dirs, void* last_row, void* diag, void* stream, int* taken) {
+  if (band < 0 || band > 1023) return (int)cudaErrorInvalidValue;
+  const Scoring s{match, mismatch, nn, nx, gap, force_max_gap};
+  const int lo = min(min(match, mismatch), min(nn, nx));
+  const Instance in = pick(band, B, sm_count());
+  if (taken) {
+    taken[0] = in.W;
+    taken[1] = in.R;
+    taken[2] = in.halo;
+  }
+  return launch_instance(in, a_pk, b_pk, begin_a, end_a, a_len, x_size,
+                         force_start, B, aw, xw, band, T, NP, s, lo, dirs,
+                         last_row, diag, (cudaStream_t)stream);
+}
+
+// The same without the instance: the C interface every version of this
+// file shares (tools/kernel_ab.py times one tree's against another's).
 extern "C" int bsw_antidiag_forward(const void* a_pk, const void* b_pk,
                                     const void* begin_a, const void* end_a,
                                     const void* a_len, const void* x_size,
@@ -491,22 +698,19 @@ extern "C" int bsw_antidiag_forward(const void* a_pk, const void* b_pk,
                                     int gap, int force_max_gap, void* dirs,
                                     void* last_row, void* diag,
                                     void* stream) {
-  const Scoring s{match, mismatch, nn, nx, gap, force_max_gap};
-  const int lo = min(min(match, mismatch), min(nn, nx));
-  const cudaStream_t st = (cudaStream_t)stream;
-#define GAM_LAUNCH(RR, WW)                                                  \
-  return launch<RR, WW>(a_pk, b_pk, begin_a, end_a, a_len, x_size,         \
-                        force_start, B, aw, xw, band, T, NP, s, lo, dirs,   \
-                        last_row, diag, st)
-  // the narrowest R at W = 1 with 32 * R >= band + 1, else W = 4, R = 10
-  const int K = band + 1;
-  if (K <= 32) GAM_LAUNCH(1, 1);
-  if (K <= 64) GAM_LAUNCH(2, 1);
-  if (K <= 160) GAM_LAUNCH(5, 1);
-  if (K <= 256) GAM_LAUNCH(8, 1);
-  if (K <= 320) GAM_LAUNCH(10, 1);
-  if (K <= 512) GAM_LAUNCH(16, 1);
-  if (K <= 1024) GAM_LAUNCH(10, 4);
-#undef GAM_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return bsw_antidiag_forward_taken(a_pk, b_pk, begin_a, end_a, a_len,
+                                    x_size, force_start, B, aw, xw, band, T,
+                                    NP, match, mismatch, nn, nx, gap,
+                                    force_max_gap, dirs, last_row, diag,
+                                    stream, nullptr);
+}
+
+// info[0], info[1] = W, R of the instance bsw_antidiag_forward takes for
+// B problems at `band` on the current device.
+extern "C" int bsw_antidiag_instance(int band, int B, int* info) {
+  if (band < 0 || band > 1023) return (int)cudaErrorInvalidValue;
+  const Instance in = pick(band, B, sm_count());
+  info[0] = in.W;
+  info[1] = in.R;
+  return 0;
 }

@@ -13,6 +13,13 @@ empty problem).  Its later direction bits and words are 0, and its
 last row and diagonal hold only cells of those steps.  Steps below
 `exact_steps(band)` (every step when begin_a < 0) run the exact body.
 
+The kernel runs one warp a problem where a launch fills the card, and
+the split instance, four warps a problem, where it leaves the card's
+schedulers empty (bands 64-159), and at every batch at bands 160-511:
+its launcher picks from the batch, the band and the card's SM count
+(`instance`), and `split_launches` counts the launches that ran the
+split instance, as the launcher reports them.
+
 Inputs (B problems): a_pk (B, a_width/2) and b_pk (B, XW/2) uint8
 4-bit packed windows (BswEngine._pack4: a band-aligned, a_win[q] =
 a[begin_a - band + q], sentinel 15, rows padded to a_width(XW, band)
@@ -41,8 +48,10 @@ MATCH_S, MISMATCH_S, NN_S, NX_S = (int(SCORING_MATRIX[0, 0]),
                                    int(SCORING_MATRIX[4, 0]))
 
 launches = 0  # kernel launches by forward_antidiag (CPU runs not counted)
+split_launches = 0  # of them, those of the split instance
 
 _fn = None
+_instance_fn = None
 
 
 def antidiag_dims(xw: int, band: int) -> tuple[int, int, int, int]:
@@ -217,12 +226,32 @@ def _kernel():
     if _fn is None:
         from .._build import library
 
-        fn = library().bsw_antidiag_forward
+        fn = library().bsw_antidiag_forward_taken
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def instance(band: int, B: int) -> tuple[int, int]:
+    """(W, R) of the CUDA instance a launch of B problems at `band`
+    takes on the current device: W warps a problem, R lanes a thread
+    (W > 1 below band 512 is the split instance).  Builds the library."""
+    global _instance_fn
+    if _instance_fn is None:
+        from .._build import library
+
+        fn = library().bsw_antidiag_instance
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _instance_fn = fn
+    info = (ctypes.c_int * 2)()
+    err = _instance_fn(band, B, ctypes.addressof(info))
+    if err:
+        raise RuntimeError(f"bsw_antidiag_instance({band}, {B}): CUDA "
+                           f"error {err}")
+    return info[0], info[1]
 
 
 def _check(name, t, dtype, shape, device):
@@ -272,15 +301,18 @@ def forward_antidiag(a_pk, b_pk, begin_a, end_a, a_len, x_size,
         return dirs, last_row, diag
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        taken = (ctypes.c_int * 3)()
         err = _kernel()(a_pk.data_ptr(), b_pk.data_ptr(), begin_a.data_ptr(),
                         end_a.data_ptr(), a_len.data_ptr(),
                         x_size.data_ptr(), force_start.data_ptr(), B, aw, xw,
                         band, T, NP, MATCH_S, MISMATCH_S, NN_S, NX_S, GAP,
                         FORCE_MAXGAP_LEN, dirs.data_ptr(),
-                        last_row.data_ptr(), diag.data_ptr(), stream)
+                        last_row.data_ptr(), diag.data_ptr(), stream,
+                        ctypes.addressof(taken))
     if err:
         raise RuntimeError(f"bsw_antidiag_forward launch failed: CUDA "
                            f"error {err}")
-    global launches
+    global launches, split_launches
     launches += 1
+    split_launches += taken[2]
     return dirs, last_row, diag

@@ -137,9 +137,12 @@ class BswEngine:
         # ragged-batching utilization: live problems vs padded batch
         # rows, and live DP rows vs padded xw*B rows; the device walk's
         # steps and its iterations (one a step in the plain walk, one a
-        # diagonal run of up to 32 word rows in the kernel)
+        # diagonal run of up to 32 word rows in the kernel); the live
+        # problems whose forward ran the split instance (a problem over
+        # several warps)
         self.util = {"live": 0, "batch": 0, "rows_live": 0,
-                     "rows_padded": 0, "walk_steps": 0, "walk_iters": 0}
+                     "rows_padded": 0, "walk_steps": 0, "walk_iters": 0,
+                     "fwd_split": 0}
         # shards dispatched to each device, by position in self.devices
         self.shard_runs = [0] * len(self.devices)
         # arena chunks and the problems they held (metrics)
@@ -435,9 +438,13 @@ class BswEngine:
                         self._shard_inputs(arrays, rows, d, xw, arena)
                 with span("bsw.launch"):
                     forward = forward_row if row else forward_antidiag
+                    split0 = bsw_antidiag.split_launches
                     dirs, last_row, diag = forward(
                         a_d, b_d, begin_a, end_a, a_len, x_size, fstart,
                         band)
+                    if bsw_antidiag.split_launches != split0:
+                        self.util["fwd_split"] += (
+                            min(rows.stop, len(chunk)) - rows.start)
                     summary, edits = walk(dirs, a_d, b_d, begin_a, end_a,
                                           x_size, fend, last_row, diag, band,
                                           lmax, with_edits=not lean,

@@ -1,5 +1,6 @@
 // A CPU stand-in for the CUDA runtime, for tests/test_torch_row_emulated.py,
-// tests/test_torch_walk_emulated.py and tests/test_torch_arena.py: it lets
+// tests/test_torch_walk_emulated.py, tests/test_torch_antidiag_emulated.py
+// and tests/test_torch_arena.py: it lets
 // g++ compile a kernel source of
 // gam_ngs_tpu_torch/csrc and run it on the host.  A launch runs the grid's
 // blocks one after another (a dim3 grid in x, then y, then z order); a
@@ -15,8 +16,12 @@
 // address of it to the same place in another rank's, and cluster_arrive /
 // cluster_wait are the halves of one barrier over all the cluster's
 // threads (the CUDA source defines these four helpers itself, in PTX,
-// only under nvcc).  cp.async copies here at once: a commit and a wait
-// have nothing left to do, so a missing or too short wait cannot show.
+// only under nvcc).  bar_sync(id, n) is the named barrier `bar.sync id,
+// n` of a block of a plain launch: the n threads that name id meet
+// there.  cp.async
+// copies here at once: a commit and a wait have nothing left to do, so a
+// missing or too short wait cannot show.  The device has emu::sm_count
+// SMs (cudaDeviceGetAttribute), which a test may set.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -24,6 +29,7 @@
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <optional>
 #include <thread>
 #include <vector>
@@ -35,6 +41,7 @@
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct emu_dim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -47,11 +54,19 @@ struct dim3 {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
@@ -81,9 +96,16 @@ struct Warp {
   std::barrier<> bar{32};
   long long vals[2][32];  // a collective's posts, two buffers in turn
 };
+// A block's named barriers, each made for its n threads when first met
+struct Named {
+  std::mutex m;
+  std::unique_ptr<std::barrier<>> bars[16];
+};
+inline int sm_count = 132;
 inline thread_local Warp* my_warp;
 inline thread_local int turn;  // the buffer of this thread's next collective
 inline thread_local std::barrier<>* my_block;
+inline thread_local Named* my_named;
 inline thread_local int* dyn_smem;
 inline thread_local int rank;          // the block's rank in its cluster
 inline thread_local int** rank_smem;   // each rank's dynamic shared memory
@@ -117,6 +139,7 @@ void launch(K kernel, dim3 grid, int block, size_t shmem, cudaStream_t,
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         std::vector<Warp> warps((block + 31) / 32);
         std::barrier<> block_bar(block);
+        Named named;
         std::vector<int> dyn(shmem / sizeof(int) + 1);
         std::vector<std::thread> threads;
         for (int t = 0; t < block; ++t)
@@ -126,6 +149,7 @@ void launch(K kernel, dim3 grid, int block, size_t shmem, cudaStream_t,
             blockDim.x = block;
             my_warp = &warps[t / 32];
             my_block = &block_bar;
+            my_named = &named;
             dyn_smem = dyn.data();
             kernel(args...);
           });
@@ -179,6 +203,10 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   if (cfg->gridDim.x % csize) return cudaErrorInvalidValue;
   emu::launch_clusters(kernel, cfg->gridDim.x, (int)cfg->blockDim.x,
                        cfg->dynamicSmemBytes, csize, E(args)...);
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu::sm_count;
   return cudaSuccess;
 }
 template <class K>
@@ -248,6 +276,16 @@ inline int __reduce_add_sync(unsigned, int v) {
 }
 inline void __syncwarp() { emu::my_warp->bar.arrive_and_wait(); }
 inline void __syncthreads() { emu::my_block->arrive_and_wait(); }
+inline void bar_sync(int id, int n) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(emu::my_named->m);
+    auto& slot = emu::my_named->bars[id];
+    if (!slot) slot = std::make_unique<std::barrier<>>(n);
+    bar = slot.get();
+  }
+  bar->arrive_and_wait();
+}
 template <class T>
 T __ldg(const T* p) {
   return *p;

@@ -293,6 +293,33 @@ def test_walk_steps_per_iter_metric_reads_the_engine_util():
                                           "walk_iters": 16})) == 250.0
 
 
+def test_forward_split_pct_metric_reads_the_engine_util():
+    """gpubench's forward_split_pct.align reads the window's util: None
+    where the engine has no fwd_split counter or aligned nothing, else
+    the split problems' share of the live ones; on the CPU the plain
+    forward runs and the engine counts no split problem."""
+    import importlib.util
+    import os
+    from types import SimpleNamespace
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "gpubench", "metrics",
+                        "forward_split_pct.align.py")
+    spec = importlib.util.spec_from_file_location("forward_split_metric",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    old = {"live": 5, "batch": 8, "rows_live": 40, "rows_padded": 64}
+    assert mod.read(SimpleNamespace(util=old)) is None
+    assert mod.read(SimpleNamespace(util={**old, "live": 0,
+                                          "fwd_split": 0})) is None
+    assert mod.read(SimpleNamespace(util={**old, "fwd_split": 4})) == 80.0
+    eng = BswEngine(CPU)
+    eng.align_many(tp.soak_problems(8))
+    assert eng.util["live"] > 0 and eng.util["fwd_split"] == 0
+    assert mod.read(SimpleNamespace(util=eng.util)) == 0.0
+
+
 @pytest.mark.parametrize("fetch", ["lean", "edits"])
 def test_engine_edge_cases_band30(fetch):
     """force_end underflow windows (x_size <= 10 -> null alignment),

@@ -7,6 +7,7 @@ its plain version run the same integer recurrence, so every output is
 compared bit for bit; the engine is held to bsw_ref.bsw_align exactly.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -174,6 +175,114 @@ def test_kernels_take_any_batch(dev, B):
                  True)
         assert same_walk(walk(*wargs, layout=layout),
                          walk_torch(*wargs, layout=layout))
+
+
+def _one_warp_batch() -> int:
+    """The least batch past 64 at which the forward's launcher takes one
+    warp a problem at band 150 on this card: past the crossover."""
+    return next(B for B in range(65, 1 << 16)
+                if bsw_antidiag.instance(150, B)[0] == 1)
+
+
+def _tiled(args, B):
+    """The forward's inputs of the first problems, repeated to B rows."""
+    n = args[0].shape[0]
+    idx = torch.arange(B, device=args[0].device) % n
+    return [v[idx].contiguous() for v in args]
+
+
+@pytest.mark.parametrize("band", [70, 150, 300, 400, 511])
+def test_split_and_one_warp_forwards_match_plain(dev, band):
+    """The seam problems (tp.seam_problems) at B = 1, 8, 64 and the least
+    batch at which the launcher takes one warp a problem at band 150: the
+    split instance (R = 1 to 5 lanes a thread at these bands) at the
+    small batches, and at the large one one warp below band 160 and the
+    split from band 160, each equal to the plain version bit for bit,
+    and the rows that two launches share equal to each other."""
+    (a, b, ba, ea, al, xs, fs, _fe), _xw = _inputs(
+        tp.seam_problems(band, 8, seed=band), band, dev)
+    args = (a, b, ba, ea, al, xs, fs)
+    plain = forward_antidiag_torch(*(v.cpu() for v in args), band)
+    big = _one_warp_batch()
+    taken, outs = set(), {}
+    for B in (1, 8, 64, big):
+        got = forward_antidiag(*_tiled(args, B), band)
+        idx = torch.arange(B) % a.shape[0]
+        for k, p in zip(got, plain):
+            assert torch.equal(k.cpu(), p[idx]), (B, band)
+        taken.add(bsw_antidiag.instance(band, B)[0])
+        outs[B] = [k[:1].cpu() for k in got]
+    assert taken == ({1, 4} if band < 160 else {4}), taken
+    for B in (8, 64, big):
+        assert all(torch.equal(x, y) for x, y in zip(outs[B], outs[1]))
+
+
+def test_split_forward_on_a_90000_row_window(dev):
+    """One problem of 90,000 rows at band 150 (the cell's longest
+    windows): the split instance of B = 1 equals the plain version and
+    the one-warp launch of the same problem repeated past the crossover,
+    bit for bit."""
+    (a, b, ba, ea, al, xs, fs, _fe), _xw = _inputs(
+        tp.seam_problems(150, 1, seed=90, longest=90000), 150, dev)
+    args = [v[:1].contiguous() for v in (a, b, ba, ea, al, xs, fs)]
+    assert bsw_antidiag.instance(150, 1)[0] > 1
+    split = forward_antidiag(*args, 150)
+    for k, p in zip(split, forward_antidiag_torch(*(v.cpu() for v in args),
+                                                  150)):
+        assert torch.equal(k.cpu(), p)
+    big = _one_warp_batch()
+    one = forward_antidiag(*_tiled(args, big), 150)
+    for k, s in zip(one, split):
+        assert torch.equal(k[:1], s) and torch.equal(k[-1:], s)
+
+
+@pytest.mark.parametrize("band", [30, 70, 150, 300, 400, 511, 700])
+def test_forward_instance_is_the_launch_taken(dev, band):
+    """bsw_antidiag.instance(band, B) names the kernel a launch runs (its
+    template arguments <R, W, split> in the profiler's kernel name), and
+    split_launches counts the launches of the split instance."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (a, b, ba, ea, al, xs, fs, _fe), _xw = _inputs(
+        tp.soak_problems(8, seed=band), band, dev)
+    args = (a, b, ba, ea, al, xs, fs)
+    for B in (1, 8, _one_warp_batch()):
+        w, r = bsw_antidiag.instance(band, B)
+        n0 = (bsw_antidiag.launches, bsw_antidiag.split_launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            forward_antidiag(*_tiled(args, B), band)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if "antidiag_forward_kernel" in e.key]
+        # four warps a step apart, not the split, past band 511
+        split = w > 1 and band < 512
+        assert len(names) == 1 and (
+            f"<{r}, {w}, {str(split).lower()}>" in names[0]), (
+            B, names, (w, r))
+        assert (bsw_antidiag.launches, bsw_antidiag.split_launches) == (
+            n0[0] + 1, n0[1] + split)
+
+
+def test_engine_counts_split_forwards(dev):
+    """BswEngine.util["fwd_split"] counts the live problems whose forward
+    ran the split instance: every one in chunks of at most 64, none in
+    one chunk past the crossover; the answers equal bsw_align's."""
+    rng = np.random.default_rng(5)
+    problems = []
+    for _ in range(300):  # one window bucket
+        a = rng.integers(0, 4, size=400).astype(np.uint8)
+        bb = tp.mutate(rng, a[150:250])[:90]
+        problems.append((a, 150, 249, bb, 0, len(bb) - 1, False, False))
+    want = tp.oracle(problems, 150)
+    small = BswEngine(dev)
+    big = BswEngine(dev, max_batch=512)  # one chunk of B = 512
+    assert bsw_antidiag.instance(150, 512)[0] == 1
+    for eng in (small, big):
+        got = eng.align_many(problems)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert tp.same_alignment(g, w), k
+    assert small.util["fwd_split"] == small.util["live"] == 300
+    assert big.dispatches == 1 and big.util["fwd_split"] == 0
 
 
 @pytest.mark.parametrize("layout,band", [

@@ -166,6 +166,30 @@ def boundary_problems(band: int):
             + soak_problems(6, seed=band, max_len=3 * band + 200))
 
 
+def seam_problems(band: int, B: int, seed: int, longest: int = 1000):
+    """Up to eight problems at `band` for the anti-diagonal forward's
+    split instance, whose warps own strips of the band's lanes: the
+    longest first (`longest` rows, N in its a, force_start, end_a inside
+    a, so its pos == end_a cells and its last row sweep every lane and
+    cross every strip seam and halo), then ragged ones of 1 to 999 rows
+    with mixed flags, a begin_a < 0 tail window (every block exact) and
+    an a that ends inside the band."""
+    rng = np.random.default_rng(seed)
+    sizes = [longest, 1, 17, band + 3, 2 * band + 5, 333, 640, 999][:B]
+    problems = []
+    for k, n in enumerate(sizes):
+        a = rng.integers(0, 5 if k % 3 == 0 else 4,
+                         size=n + 2 * band).astype(np.uint8)
+        b = mutate(rng, a[band:band + n])
+        b = np.concatenate([b, rng.integers(0, 4, n).astype(np.uint8)])[:n]
+        ba = -int(rng.integers(1, band + 1)) if k == 4 else band
+        if k == 5:  # a runs out inside the band
+            a = a[:n // 2 + band]
+        ea = len(a) - 1 - int(rng.integers(0, min(len(a), 2 * band)))
+        problems.append((a, ba, ea, b, 0, n - 1, k % 2 == 0, k % 3 == 1))
+    return problems
+
+
 def tie_problems(seed: int = 17):
     """Problems whose find-max candidates tie: homopolymer (all A, all
     N) and period-4 sequences aligned to themselves, where every band

@@ -4,6 +4,7 @@ words; with --gather, its arena window gather) against another
 version's, on one CUDA GPU, in turns.
 
     python3 tools/kernel_ab.py --base DIR [--row] [--reps 5] [--out FILE]
+    python3 tools/kernel_ab.py --base DIR --batches 1,8,16,64 [--out FILE]
     python3 tools/kernel_ab.py --walk DIR [--bands 1023] [--out FILE]
     python3 tools/kernel_ab.py --gather DIR [--out FILE]
     python3 tools/kernel_ab.py --floor [--out FILE]
@@ -24,6 +25,19 @@ versions (both hold the same valid cells).  Beside each time it prints
 the kernel's bound on these inputs, chip_smoke.py's `bound` (int32
 operations from the recurrence, or bytes), and the multiple.  Prints
 one line a shape and kernel, and one JSON object last.
+
+--batches B1,B2,...: the forward alone on the tail rounds' shapes: B
+problems (each listed batch) at band 150 (or each of --bands) in
+windows XW 4096 (x_size in [0.8 XW, XW)), and at band 150 in XW 98304
+(x_size 90,000, the longest windows of gage-rsph.align; batches up to
+--tail-max, default 64), timed DIR's forward ("base"), this tree's as
+its launcher picks ("this"), and this tree's every instance that covers
+the band, whatever the launcher would pick ("W1R5": one warp a problem,
+five lanes a thread; "W4R2": the split instance of four warps), built
+from this tree's source with an entry point added that launches a named
+instance; in turns, forward then back; all outputs held equal bit for
+bit; each time with ns an anti-diagonal of the longest problem, bound
+and multiple, and the instance (W, R) the launcher takes.
 
 --row: DIR holds the other version's bsw_row.cu (same C entry point);
 both row forwards run B=64 problems at band 150 in windows XW 1024, 4096
@@ -165,19 +179,21 @@ class Shape:
                              for v in (a_pk, b_pk, scal))
         self.ba, self.ea, self.al, self.xs, self.fs, self.fe = s.unbind(0)
         self.B = self.a.shape[0]
-        self.K, self.T, self.NP, _ = antidiag_dims(self.xw, BAND)
-        self.lmax = -(-(2 * self.xw + 2 * BAND + 8) // 4) * 4
+        self.band = band
+        self.K, self.T, self.NP, _ = antidiag_dims(self.xw, band)
+        self.lmax = -(-(2 * self.xw + 2 * band + 8) // 4) * 4
         self.stream = torch.cuda.current_stream().cuda_stream
 
     def forward(self, fn):
         dirs = torch.empty((self.B, self.NP, self.K), dtype=torch.int32,
                            device=DEV)
-        lr = torch.empty((self.B, 2 * BAND + 1), dtype=torch.int32,
+        lr = torch.empty((self.B, 2 * self.band + 1), dtype=torch.int32,
                          device=DEV)
         dg = torch.empty_like(lr)
         err = fn(*(v.data_ptr() for v in (self.a, self.b, self.ba, self.ea,
                                           self.al, self.xs, self.fs)),
-                 self.B, 2 * self.a.shape[1], self.xw, BAND, self.T, self.NP,
+                 self.B, 2 * self.a.shape[1], self.xw, self.band, self.T,
+                 self.NP,
                  MATCH_S, MISMATCH_S, NN_S, NX_S, GAP, FORCE_MAXGAP_LEN,
                  dirs.data_ptr(), lr.data_ptr(), dg.data_ptr(), self.stream)
         if err:
@@ -191,12 +207,115 @@ class Shape:
         err = fn(*(v.data_ptr() for v in (dirs, self.a, self.b, self.ba,
                                           self.ea, self.xs, self.fe, lr,
                                           dg)),
-                 self.B, 2 * self.a.shape[1], self.xw, BAND, self.NP,
+                 self.B, 2 * self.a.shape[1], self.xw, self.band, self.NP,
                  self.lmax, FORCE_MAXGAP_LEN, 0, summary.data_ptr(), None,
                  self.stream)
         if err:
             raise RuntimeError(f"walk launch: CUDA error {err}")
         return summary
+
+
+# Added to this tree's bsw_antidiag.cu for --batches: launch a named
+# instance, and the narrowest R of W warps (split or not) at a band.
+FORCED_ENTRY = """
+extern "C" int bsw_antidiag_forward_as(
+    int R, int W, int halo, const void* a_pk, const void* b_pk,
+    const void* begin_a, const void* end_a, const void* a_len,
+    const void* x_size, const void* force_start, int B, int aw, int xw,
+    int band, int T, int NP, int match, int mismatch, int nn, int nx,
+    int gap, int force_max_gap, void* dirs, void* last_row, void* diag,
+    void* stream) {
+  const Scoring s{match, mismatch, nn, nx, gap, force_max_gap};
+  const int lo = min(min(match, mismatch), min(nn, nx));
+  return launch_instance(Instance{R, W, halo != 0}, a_pk, b_pk, begin_a,
+                         end_a, a_len, x_size, force_start, B, aw, xw, band,
+                         T, NP, s, lo, dirs, last_row, diag,
+                         (cudaStream_t)stream);
+}
+extern "C" int bsw_antidiag_narrowest(int band, int W, int halo) {
+  return narrowest(band + 1, W, halo != 0).R;
+}
+"""
+
+
+def tail_ab(base_dir: str, reps: int, card: str, ops_rate: float,
+            batches: list[int], tail_max: int, bands: list[int]) -> dict:
+    """The forward on the tail rounds' shapes: DIR's, this tree's as its
+    launcher picks, and this tree's every instance at each band."""
+    from gam_ngs_tpu_torch.ops import bsw_antidiag
+
+    this = entry_points(_build.library())[0]
+    res = {"card": card, "shapes": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        forced_src = os.path.join(tmp, "bsw_antidiag_forced.cu")
+        with open(os.path.join(_build.CSRC, "bsw_antidiag.cu")) as fh:
+            text = fh.read()
+        with open(forced_src, "w") as fh:
+            fh.write(text + FORCED_ENTRY)
+        libs = {}
+        for name, src in (("base", os.path.join(base_dir, "bsw_antidiag.cu")),
+                          ("forced", forced_src)):
+            os.makedirs(os.path.join(tmp, name))
+            libs[name], log = build([src], os.path.join(tmp, name))
+            for line in chip_smoke.ptxas_lines(log,
+                                               "antidiag_forward_kernel"):
+                print(f"[{name}] {line}")
+        base = libs["base"].bsw_antidiag_forward
+        base.argtypes, base.restype = this.argtypes, this.restype
+        as_fn = libs["forced"].bsw_antidiag_forward_as
+        as_fn.argtypes = [ctypes.c_int] * 3 + this.argtypes
+        as_fn.restype = ctypes.c_int
+        narrowest = libs["forced"].bsw_antidiag_narrowest
+        narrowest.argtypes = [ctypes.c_int] * 3
+        narrowest.restype = ctypes.c_int
+        for band in bands:
+            fns = {"base": base, "this": this}
+            for w in (1, 4):
+                r = narrowest(band, w, int(w > 1))
+                if r:
+                    fns[f"W{w}R{r}"] = (lambda *a, r=r, w=w:
+                                        as_fn(r, w, int(w > 1), *a))
+            for xw, fixed in ((4096, 0), (98304, 90000)):
+                bs = [b for b in batches
+                      if xw == 4096 or (b <= tail_max and band == BAND)]
+                if not bs:
+                    continue
+                probs = problems(xw, B=max(bs), fixed=fixed, band=band)
+                for B in bs:
+                    res["shapes"][f"band{band}_B{B}_xw{xw}"] = tail_shape(
+                        Shape(probs[:B], band), fns, reps, card, ops_rate,
+                        bsw_antidiag.instance(band, B))
+    return res
+
+
+def tail_shape(sh, fns, reps, card, ops_rate, inst) -> dict:
+    """One shape of tail_ab: every version's outputs held equal to this
+    tree's, then each timed in turns."""
+    outs = {v: sh.forward(fn) for v, fn in fns.items()}
+    torch.cuda.synchronize()
+    for v, out in outs.items():
+        if not all(torch.equal(x, y) for x, y in zip(out, outs["this"])):
+            raise AssertionError(f"B={sh.B} band={sh.band} XW={sh.xw}: "
+                                 f"{v}'s outputs differ from this tree's")
+    fargs = (sh.a, sh.b, sh.ba, sh.ea, sh.al, sh.xs, sh.fs, sh.band)
+    b_ms, b_by = chip_smoke.bound("bsw_antidiag", fargs, sh.fe,
+                                  outs["this"], ops_rate)
+    del outs
+    n = int((2 * (sh.xs - 1) + 2 * sh.band + 1).max())
+    ms: dict = {}
+    order = list(fns)
+    for turn in order + order[::-1]:
+        ms.setdefault(turn, []).append(
+            launch_ms(lambda: sh.forward(fns[turn]), reps))
+    for turn, v in ms.items():
+        print(f"[tail] {card} | B={sh.B} band={sh.band} XW={sh.xw} "
+              f"bsw_antidiag_{turn}: ms {', '.join(f'{t:.4f}' for t in v)}; "
+              f"{statistics.mean(v) * 1e6 / n:.1f} ns/step over {n} steps; "
+              f"bound {b_ms:.6f} ms ({b_by}), "
+              f"{statistics.mean(v) / b_ms:.1f}x it; this: W, R = {inst}",
+              flush=True)
+    return {"ms": ms, "steps": n, "bound_ms": b_ms, "bound_by": b_by,
+            "instance": inst}
 
 
 def row_ab(base_dir: str, reps: int, card: str, ops_rate: float,
@@ -550,7 +669,13 @@ def main() -> int:
                     help="time the row-form forward (DIR/bsw_row.cu)")
     ap.add_argument("--bands", default=None,
                     help="the bands timed at XW 4096 besides 150 (--row: "
-                    "default 300,511; --walk: default 1023)")
+                    "default 300,511; --walk: default 1023); with "
+                    "--batches, the bands timed (default 150)")
+    ap.add_argument("--batches", default=None,
+                    help="with --base: the forward alone at these batch "
+                    "sizes on the tail rounds' shapes")
+    ap.add_argument("--tail-max", type=int, default=64,
+                    help="the largest batch timed at XW 98304")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -609,6 +734,16 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[this] {line.strip()}")
+    if args.batches:
+        line = json.dumps(tail_ab(
+            args.base, args.reps, card, ops_rate,
+            [int(b) for b in args.batches.split(",")], args.tail_max,
+            [int(b) for b in (args.bands or str(BAND)).split(",")]))
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(line + "\n")
+        print(line)
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         lib, log = build([os.path.join(args.base, n)
                           for n in ("bsw_antidiag.cu", "bsw_walk.cu")], tmp)
